@@ -1,0 +1,158 @@
+"""Inference driver: `python -m saunet_tpu_torch.cli.test_and_pack <flags>`
+(counterpart of saunet_tpu/cli/test_and_pack.py, same flags).
+
+Load a checkpoint, run the ACDC test set with all z-slices of a volume as
+one batch (padded to a `--z_bucket` multiple), repack the argmax into the
+original 3D geometry (undo crop + nearest resample), save NIfTI volumes,
+and optionally write side-by-side PNGs. `--checkpoint` is a `torch.save`d
+port state_dict (see models/jax_weights.py to bridge JAX weights). The port
+has one stream layout: `--stream_impl` is accepted and runs the same math.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data import ACDCTestDataset, nifti, normalize_for_eval, resample_to_orig
+from ..models import build_unet
+from ..train import InferState, make_infer_step
+from ..utils import AverageMeter
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="SAUNet (PyTorch) test + pack")
+    p.add_argument("--id", required=True)
+    p.add_argument("--checkpoint", type=str, required=True)
+    p.add_argument("--arch_unet", default="saunet")
+    p.add_argument("--num_class", default=4, type=int)
+    p.add_argument("--data-root", dest="data_root", type=str,
+                   default=os.getenv("DATA_ROOT", ""))
+    p.add_argument("--series-file", dest="series_file", type=str, default="")
+    p.add_argument("--crop_size", default=256, type=int)
+    p.add_argument("--stream_impl", default="auto",
+                   choices=["auto", "xla", "packed"])
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--visualize", action="store_true", default=True)
+    p.add_argument("--no-visualize", dest="visualize", action="store_false")
+    p.add_argument("--result", default="./result")
+    p.add_argument("--save_test_path", default="./test_files")
+    p.add_argument("--attention_map", action="store_true",
+                   help="also export the decoder attention + shape-stream "
+                        "gate maps per volume as PNGs under "
+                        "<result>/<id>/attention/")
+    p.add_argument("--z_bucket", default=4, type=int,
+                   help="slice-batch bucket granularity")
+    p.add_argument("--device", default="cuda" if torch.cuda.is_available()
+                   else "cpu")
+    args = p.parse_args(argv)
+    args.result = os.path.join(args.result, args.id)
+    return args
+
+
+def visualize_result(img2d: np.ndarray, pred2d: np.ndarray, out_path: str):
+    """Side-by-side grayscale image | prediction*85 PNG via PIL."""
+    from PIL import Image
+
+    img = img2d.astype(np.float64)
+    rng = img.max() - img.min()
+    img = ((img - img.min()) / rng * 255.0 if rng > 0
+           else np.zeros_like(img)).astype(np.uint8)
+    pred = (pred2d * 85).astype(np.uint8)
+    Image.fromarray(np.concatenate([img, pred], axis=1), mode="L").save(
+        out_path)
+
+
+def save_attention_maps(atts, vol_name: str, z: int, out_dir: str):
+    """The decoder attention maps (att2..att5, upsampled) and the three
+    shape-stream gate maps as per-slice grayscale PNGs."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    names = ["att2", "att3", "att4", "att5", "gate1", "gate2", "gate3"]
+    for k, amap in enumerate(atts):
+        name = names[k] if k < len(names) else f"att{k}"
+        a = amap.float().cpu().numpy()[:z, :, :, 0]
+        lo, hi = a.min(), a.max()
+        a8 = ((a - lo) / (hi - lo) * 255.0 if hi > lo
+              else np.zeros_like(a)).astype(np.uint8)
+        for zz in range(z):
+            Image.fromarray(a8[zz], mode="L").save(
+                os.path.join(out_dir, f"{vol_name}_{name}_z{zz}.png"))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    print("Input arguments:")
+    for k, v in sorted(vars(args).items()):
+        print(f"  {k:20} {v}")
+
+    model = build_unet(num_class=args.num_class, arch=args.arch_unet,
+                       dtype=args.dtype)
+    model.load_state_dict(torch.load(args.checkpoint, map_location="cpu",
+                                     weights_only=True))
+    device = torch.device(args.device)
+    state = InferState(model, device)
+    infer = make_infer_step(model, with_att=args.attention_map)
+
+    ds = ACDCTestDataset(args.data_root,
+                         series_file=args.series_file or None,
+                         target_size=args.crop_size)
+    os.makedirs(args.save_test_path, exist_ok=True)
+    if args.visualize:
+        os.makedirs(args.result, exist_ok=True)
+
+    time_meter = AverageMeter()
+    for i in range(len(ds)):
+        vol = ds.load_volume(i)
+        z = vol.image.shape[2]
+        zb = ((z + args.z_bucket - 1) // args.z_bucket) * args.z_bucket
+        imgs = np.zeros((zb,) + vol.image.shape[:2], np.float32)
+        imgs[:z] = np.moveaxis(vol.image, 2, 0)
+
+        tic = time.perf_counter()
+        batch = normalize_for_eval(torch.from_numpy(imgs).to(device))
+        out = infer(state, batch)
+        preds = out[1][:z].cpu().numpy()  # waits for the device
+        time_meter.update((time.perf_counter() - tic) / z, weight=z)
+
+        pred_volume = np.moveaxis(preds, 0, 2).astype(np.uint8)
+        pv_resized = resample_to_orig(pred_volume, vol)
+        out_path = os.path.join(args.save_test_path, vol.name + ".nii.gz")
+        nifti.save(pv_resized.astype(np.uint8), out_path)
+        print(f"Saved {vol.name}! ({z} slices, "
+              f"{time_meter.average() * 1e3:.2f} ms/slice avg)")
+
+        if args.visualize:
+            orig = _orig_volume(ds, i)
+            for zz in range(vol.orig_shape[2]):
+                visualize_result(
+                    orig[:, :, zz], pv_resized[:, :, zz],
+                    os.path.join(args.result, f"{vol.name}{zz}.png"))
+        if args.attention_map:
+            save_attention_maps(out[3], vol.name, z,
+                                os.path.join(args.result, "attention"))
+
+    with open(os.path.join(args.save_test_path, "timing.json"), "w") as f:
+        json.dump({"ms_per_slice": float(time_meter.average() * 1e3),
+                   "device": str(device)}, f)
+    print("Evaluation Done!")
+
+
+def _orig_volume(ds: ACDCTestDataset, index: int) -> np.ndarray:
+    patient, frame = ds.series[index]
+    base = os.path.join(ds.test_dir, f"patient{patient:03d}",
+                        f"patient{patient:03d}_frame{frame:02d}")
+    path = base + ".nii.gz"
+    if not os.path.exists(path):
+        path = base + ".nii"
+    return np.asarray(nifti.load(path).data)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,103 @@
+"""DenseNet-121 feature encoder, NCHW, forward only (counterpart of
+saunet_tpu/models/densenet.py).
+
+Two quirks of SAUNet's use of torchvision's densenet121 are kept:
+  * stage 1 is conv0 + norm0 only: no relu0 and no pool0, so denseblock1
+    runs at H/2;
+  * f5 is denseblock4 + norm5 with no trailing ReLU.
+The taps f2..f4 are the transition outputs after their 2x2 average pool.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .blocks import Conv2d
+from .norm import BatchNorm2d
+
+DENSENET121_BLOCKS = (6, 12, 24, 16)
+GROWTH_RATE = 32
+BN_SIZE = 4
+NUM_INIT_FEATURES = 64
+
+
+class DenseLayer(nn.Module):
+    """BN-ReLU-Conv1x1(bn_size*k) -> BN-ReLU-Conv3x3(k); returns the new
+    features to concatenate."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        hidden = BN_SIZE * GROWTH_RATE
+        self.norm1 = BatchNorm2d(cin)
+        self.conv1 = Conv2d(cin, hidden, bias=False)
+        self.norm2 = BatchNorm2d(hidden)
+        self.conv2 = Conv2d(hidden, GROWTH_RATE, 3, bias=False)
+
+    def forward(self, x):
+        h = self.conv1(F.relu(self.norm1(x)))
+        return self.conv2(F.relu(self.norm2(h)))
+
+
+class DenseBlock(nn.Module):
+    """`num_layers` DenseLayers over a growing channel concat."""
+
+    def __init__(self, cin: int, num_layers: int):
+        super().__init__()
+        for i in range(num_layers):
+            self.add_module(f"denselayer{i + 1}",
+                            DenseLayer(cin + i * GROWTH_RATE))
+
+    def forward(self, x):
+        for layer in self.children():
+            x = torch.cat([x, layer(x)], dim=1)
+        return x
+
+
+class Transition(nn.Module):
+    """BN-ReLU-Conv1x1(out) -> AvgPool 2x2."""
+
+    def __init__(self, cin: int, out_features: int):
+        super().__init__()
+        self.norm = BatchNorm2d(cin)
+        self.conv = Conv2d(cin, out_features, bias=False)
+
+    def forward(self, x):
+        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2)
+
+
+class DenseNetEncoder(nn.Module):
+    """DenseNet-121 trunk exposing the five SAUNet feature taps (f1..f5),
+    NCHW in and out."""
+
+    def __init__(self, block_config=DENSENET121_BLOCKS):
+        super().__init__()
+        self.block_config = tuple(block_config)
+        self.conv0 = Conv2d(3, NUM_INIT_FEATURES, 7, stride=2, padding=3,
+                            bias=False)
+        self.norm0 = BatchNorm2d(NUM_INIT_FEATURES)
+        features = NUM_INIT_FEATURES
+        for i, num_layers in enumerate(self.block_config):
+            self.add_module(f"denseblock{i + 1}",
+                            DenseBlock(features, num_layers))
+            features += num_layers * GROWTH_RATE
+            if i != len(self.block_config) - 1:
+                self.add_module(f"transition{i + 1}",
+                                Transition(features, features // 2))
+                features //= 2
+        self.norm5 = BatchNorm2d(features)
+
+    def blocks(self):
+        return [getattr(self, f"denseblock{i + 1}")
+                for i in range(len(self.block_config))]
+
+    def forward(self, x):
+        f1 = self.norm0(self.conv0(x))
+        h, taps = f1, []
+        for i in range(len(self.block_config)):
+            h = getattr(self, f"denseblock{i + 1}")(h)
+            if i != len(self.block_config) - 1:
+                h = getattr(self, f"transition{i + 1}")(h)
+                taps.append(h)
+        f2, f3, f4 = taps
+        return f1, f2, f3, f4, self.norm5(h)

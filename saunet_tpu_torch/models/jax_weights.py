@@ -1,0 +1,82 @@
+"""Weight bridge: a JAX package `{'params', 'batch_stats'}` tree -> a port
+state_dict (the other direction of saunet_tpu/models/torch_port.py).
+
+The port's modules carry the flax tree's names, so the map is one to one:
+flax path `a/b/c/<leaf>` is port key `a.b.c.<field>`.
+
+  conv kernel (HWIO)                -> weight (OIHW), transpose(3, 2, 0, 1)
+  ConvTranspose_* kernel (HWIO)     -> weight (in, out, kh, kw): flip both
+                                       spatial axes, then transpose(2, 3, 0, 1)
+  bias                              -> bias
+  BN scale / bias                   -> weight / bias
+  BN batch_stats mean / var         -> running_mean / running_var (plus
+                                       num_batches_tracked = 0)
+
+Input leaves are numpy arrays (or anything `np.asarray` takes). Reading the
+JAX package's .msgpack checkpoints is left to a later change.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v, np.float32)
+    return out
+
+
+def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} -> port state_dict.
+
+    Raises on a leaf the map does not know and on a BatchNorm whose
+    parameters and statistics do not both exist."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    sd: Dict[str, torch.Tensor] = {}
+    bn_modules = {path[:-1] for path in params if path[-1] == "scale"}
+    stat_modules = {path[:-1] for path in stats}
+    if bn_modules != stat_modules:
+        raise KeyError(f"BatchNorm leaves missing: params without stats "
+                       f"{sorted(bn_modules - stat_modules)[:4]}, stats "
+                       f"without params {sorted(stat_modules - bn_modules)[:4]}")
+
+    for path, v in params.items():
+        mod, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            if v.ndim != 4:
+                raise ValueError(f"{'/'.join(path)}: expected a 4-D kernel, "
+                                 f"got {v.shape}")
+            if path[-2].startswith("ConvTranspose"):
+                w = v[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                w = v.transpose(3, 2, 0, 1)
+            sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        elif leaf == "scale":
+            sd[f"{mod}.weight"] = torch.from_numpy(v.copy())
+        elif leaf == "bias":
+            sd[f"{mod}.bias"] = torch.from_numpy(v.copy())
+        else:
+            raise KeyError(f"no port counterpart for params leaf "
+                           f"{'/'.join(path)}")
+    names = {"mean": "running_mean", "var": "running_var"}
+    for path, v in stats.items():
+        mod, leaf = ".".join(path[:-1]), path[-1]
+        if leaf not in names:
+            raise KeyError(f"no port counterpart for batch_stats leaf "
+                           f"{'/'.join(path)}")
+        sd[f"{mod}.{names[leaf]}"] = torch.from_numpy(v.copy())
+    for path in bn_modules:
+        mod = ".".join(path)
+        for field in ("running_mean", "running_var"):
+            if f"{mod}.{field}" not in sd:
+                raise KeyError(f"BatchNorm {mod} has no {field}")
+        sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd

@@ -1,0 +1,155 @@
+"""SAUNet: Shape-Attentive U-Net, NCHW (counterpart of
+saunet_tpu/models/saunet.py, `stream_impl="xla"` math).
+
+DenseNet-121 encoder (no pool0), gated full-resolution shape stream, Canny
+edge cue, four dual-attention decoder blocks, edge fusion and a 1x1 head.
+Parameters stay f32; `dtype` is the compute dtype, as flax's `dtype=`.
+
+The TPU package's lane-packed stream (`stream_impl="packed"`) is a TPU
+memory layout with the same math and the same parameter tree; the port
+computes that math once, and its tests hold it against both layouts.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.cuda.canny import canny_edges_cuda
+from ..ops.edge import canny_edges, image_to_gray255
+from ..ops.resize import resize_bilinear
+from ..utils.config import NUM_CLASSES, NUM_FILTERS
+from .blocks import (
+    Conv2d,
+    ConvBNRelu,
+    DecoderBlock,
+    DualAttBlock,
+    GatedSpatialConv,
+    ResBasicBlock,
+    max_pool_2x2,
+)
+from .densenet import DenseNetEncoder
+
+
+class SAUNet(nn.Module):
+    """`edge_kernel`: "auto" runs Canny through its kernel wrapper (the
+    CUDA kernel on a GPU, the plain version on the CPU); "plain" always
+    runs the plain version."""
+
+    def __init__(self, num_classes: int = NUM_CLASSES,
+                 num_filters: int = NUM_FILTERS,
+                 dtype: torch.dtype = torch.float32,
+                 canny_low: float = 10.0, canny_high: float = 100.0,
+                 edge_kernel: str = "auto"):
+        super().__init__()
+        if edge_kernel not in ("auto", "plain"):
+            raise ValueError(f"edge_kernel must be 'auto' or 'plain', got "
+                             f"{edge_kernel!r}")
+        self.num_classes = num_classes
+        self.num_filters = num_filters
+        self.dtype = dtype
+        self.canny_low, self.canny_high = canny_low, canny_high
+        self.edge_kernel = edge_kernel
+        nf = num_filters
+
+        self.encoder = DenseNetEncoder()
+        # shape stream; f2..f5 carry 128, 256, 512, 1024 channels
+        self.d0 = Conv2d(128, 64)
+        self.c3 = Conv2d(256, 1)
+        self.c4 = Conv2d(512, 1)
+        self.c5 = Conv2d(1024, 1)
+        self.res1 = ResBasicBlock(64)
+        self.d1 = Conv2d(64, 32)
+        self.gate1 = GatedSpatialConv(32, 32)
+        self.res2 = ResBasicBlock(32)
+        self.d2 = Conv2d(32, 16)
+        self.gate2 = GatedSpatialConv(16, 16)
+        self.res3 = ResBasicBlock(16)
+        self.d3 = Conv2d(16, 8)
+        self.gate3 = GatedSpatialConv(8, 8)
+        self.fuse = Conv2d(8, 1, bias=False)
+
+        # dual-attention decoder trunk
+        self.center = ConvBNRelu(1024, nf * 16, 3)
+        self.dec5 = DualAttBlock(nf * 16, 1024, 512)
+        self.dec4 = DualAttBlock(512, 512, 256)
+        self.dec3 = DualAttBlock(256, 256, 128)
+        self.dec2 = DualAttBlock(128, 128, 64)
+
+        # edge fusion + full-resolution tail
+        self.cw = Conv2d(2, 1, bias=False)
+        self.expand = ConvBNRelu(1, nf, 1)
+        self.dec1 = DecoderBlock(64, 48, nf)
+        self.dec0 = ConvBNRelu(2 * nf, nf, 3)
+        self.final = Conv2d(nf, num_classes)
+
+    def _canny(self, gray: torch.Tensor) -> torch.Tensor:
+        """NHW1 gray -> NHW1 edges. The input is detached: the kernel has
+        no backward, and the reference's cv2 Canny is gradient-opaque."""
+        gray = gray.detach()
+        if self.edge_kernel == "plain":
+            return canny_edges(gray, self.canny_low, self.canny_high)
+        return canny_edges_cuda(gray, self.canny_low, self.canny_high)
+
+    def forward(self, x: torch.Tensor, return_att: bool = False):
+        """x: NCHW image. Returns (logits f32, edge_out[, att maps])."""
+        x = x.to(self.dtype)
+        _, f2, f3, f4, f5 = self.encoder(x)
+        return self.decode((f2, f3, f4, f5), x, return_att)
+
+    def shape_stream(self, taps: Sequence[torch.Tensor], x: torch.Tensor):
+        """(f2..f5, x) -> (edge_out f32 in (0, 1), (g1, g2, g3))."""
+        conv2, conv3, conv4, conv5 = taps
+        hw = x.shape[2:]
+        ss = resize_bilinear(self.d0(conv2), hw)
+        ss = self.d1(self.res1(ss))
+        ss, g1 = self.gate1(ss, resize_bilinear(self.c3(conv3), hw))
+        ss = self.d2(self.res2(ss))
+        ss, g2 = self.gate2(ss, resize_bilinear(self.c4(conv4), hw))
+        ss = self.d3(self.res3(ss))
+        ss, g3 = self.gate3(ss, resize_bilinear(self.c5(conv5), hw))
+        return torch.sigmoid(self.fuse(ss).float()), (g1, g2, g3)
+
+    def _dualatt_decoder(self, taps):
+        """center .. dec2. Returns (dec2, (att2, att3, att4, att5))."""
+        conv2, conv3, conv4, conv5 = taps
+
+        def up2(t):
+            return resize_bilinear(t, (t.shape[2] * 2, t.shape[3] * 2))
+
+        center = self.center(max_pool_2x2(conv5))
+        dec5, att5 = self.dec5(center, conv5)
+        dec4, att4 = self.dec4(dec5, up2(conv4))
+        dec3, att3 = self.dec3(dec4, up2(conv3))
+        dec2, att2 = self.dec2(dec3, up2(conv2))
+        return dec2, (att2, att3, att4, att5)
+
+    @staticmethod
+    def _upsampled_atts(atts, gates):
+        out = [resize_bilinear(a, (a.shape[2] * s, a.shape[3] * s))
+               for a, s in zip(atts, (2, 4, 8, 16))]
+        return out + list(gates)
+
+    def decode(self, taps: Sequence[torch.Tensor], x: torch.Tensor,
+               return_att: bool = False):
+        """Everything after the encoder: shape stream, Canny edge fusion,
+        dual-attention decoder, head. `taps` = (f2, f3, f4, f5) NCHW;
+        `x` is the NCHW network input, cast to the model dtype BEFORE the
+        gray image is taken from it."""
+        dt = self.dtype
+        x = x.to(dt)
+        edge_out, gates = self.shape_stream(taps, x)
+
+        gray = image_to_gray255(x.permute(0, 2, 3, 1))
+        canny = self._canny(gray).to(dt).permute(0, 3, 1, 2)
+        acts = torch.sigmoid(self.cw(torch.cat([edge_out.to(dt), canny], 1)))
+        edge = self.expand(acts)
+
+        dec2, atts = self._dualatt_decoder(taps)
+        dec1 = self.dec1(dec2)
+        dec0 = self.dec0(torch.cat([dec1, edge], dim=1))
+        x_out = self.final(dec0).float()
+        if return_att:
+            return x_out, edge_out, self._upsampled_atts(atts, gates)
+        return x_out, edge_out

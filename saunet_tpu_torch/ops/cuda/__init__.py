@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Counterpart of saunet_tpu/ops/pallas/. Each wrapper runs its kernel for a
+CUDA tensor (or raises) and its plain PyTorch version for a CPU tensor, and
+counts its kernel launches in `<wrapper>.launches`.
+"""
+from .canny import canny_edges_cuda
+from .dense_block import dense_block, dense_block_plain, fold_dense_block_params
+
+KERNELS = (canny_edges_cuda, dense_block)
+
+__all__ = ["KERNELS", "canny_edges_cuda", "dense_block",
+           "dense_block_plain", "fold_dense_block_params"]

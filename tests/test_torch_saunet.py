@@ -1,0 +1,195 @@
+"""The port's SAUNet through its infer step, against the JAX package's
+`make_infer_step(fused_encoder=False)` (the f32 XLA route) for both
+`stream_impl`s, on one variable tree; the weight bridge; and the rule that
+the port never imports jax.
+
+The variables are never made by a flax `init` of the whole model: the tree
+of shapes comes from `jax.eval_shape` and every leaf is filled from a numpy
+seed (tests/torch_port_util.py). The two stream layouts share that tree."""
+import subprocess
+import sys
+from collections import namedtuple
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+from torch import nn
+
+from saunet_tpu.models import build_unet as build_unet_jax
+from saunet_tpu.train.state import make_infer_step as make_infer_step_jax
+from saunet_tpu_torch.models import build_unet
+from saunet_tpu_torch.models.jax_weights import from_jax_variables
+from saunet_tpu_torch.ops.cuda import canny_edges_cuda, dense_block
+from saunet_tpu_torch.train import InferState, make_infer_step
+from torch_port_util import fill_variables
+
+BATCH, SIZE = 2, 32
+State = namedtuple("State", ["params", "batch_stats"])
+
+
+@pytest.fixture(scope="module")
+def variables():
+    model = build_unet_jax(dtype="float32", stream_impl="xla")
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False),
+        jax.random.PRNGKey(0))
+    return fill_variables({"params": shapes["params"],
+                           "batch_stats": shapes["batch_stats"]}, seed=0)
+
+
+@pytest.fixture(scope="module")
+def images():
+    return np.random.RandomState(1).randn(BATCH, SIZE, SIZE, 3).astype(
+        np.float32)
+
+
+@pytest.fixture(scope="module")
+def port_outputs(variables, images):
+    model = build_unet(dtype="float32")
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    step = make_infer_step(model, with_probs=True, with_edge=True,
+                           with_att=True)
+    launches = (canny_edges_cuda.launches, dense_block.launches)
+    out = step(InferState(model, "cpu"), torch.from_numpy(images))
+    # the CPU tensors took the plain versions: no kernel was launched
+    assert (canny_edges_cuda.launches, dense_block.launches) == launches
+    return out
+
+
+def to_jax_variables(model: nn.Module) -> dict:
+    """A port model's weights as the JAX package's variable tree (the
+    inverse of `from_jax_variables`)."""
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = value.detach().numpy()
+
+    for name, m in model.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(m, nn.BatchNorm2d):
+            put(params, path + ("scale",), m.weight)
+            put(params, path + ("bias",), m.bias)
+            put(stats, path + ("mean",), m.running_mean)
+            put(stats, path + ("var",), m.running_var)
+        elif isinstance(m, nn.ConvTranspose2d):
+            put(params, path + ("kernel",),
+                m.weight.permute(2, 3, 0, 1).flip(0, 1))
+        elif isinstance(m, nn.Conv2d):
+            put(params, path + ("kernel",), m.weight.permute(2, 3, 1, 0))
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+                and m.bias is not None:
+            put(params, path + ("bias",), m.bias)
+    return {"params": params, "batch_stats": stats}
+
+
+def test_bridge_fills_every_entry_once(variables):
+    sd = from_jax_variables(variables)
+    model = build_unet(dtype="float32")
+    want = model.state_dict()
+    assert set(sd) == set(want)
+    leaves = jax.tree.leaves(variables)
+    tracked = [k for k in sd if k.endswith("num_batches_tracked")]
+    assert len(sd) - len(tracked) == len(leaves)  # no two leaves collide
+    for k, v in sd.items():
+        assert v.shape == want[k].shape, k
+    n_port = sum(v.numel() for k, v in sd.items() if k not in tracked)
+    assert n_port == sum(int(np.prod(l.shape)) for l in leaves)
+
+
+def test_bridge_round_trip(variables):
+    model = build_unet(dtype="float32")
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    back = to_jax_variables(model)
+    ref = jax.tree_util.tree_flatten_with_path(variables)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(got) == len(ref)
+    for path, leaf in ref:
+        np.testing.assert_array_equal(got[path], leaf,
+                                      err_msg=jax.tree_util.keystr(path))
+
+
+def test_bridge_raises_on_unknown_or_missing_leaves(variables):
+    extra = {"params": dict(variables["params"]),
+             "batch_stats": variables["batch_stats"]}
+    extra["params"]["final"] = dict(extra["params"]["final"],
+                                    gamma=np.zeros(4, np.float32))
+    with pytest.raises(KeyError, match="final/gamma"):
+        from_jax_variables(extra)
+    missing = {"params": variables["params"],
+               "batch_stats": dict(variables["batch_stats"])}
+    del missing["batch_stats"]["expand"]
+    with pytest.raises(KeyError, match="expand"):
+        from_jax_variables(missing)
+
+
+@pytest.mark.parametrize("stream_impl", ["xla", "packed"])
+def test_infer_step_matches_jax(stream_impl, variables, images,
+                                port_outputs):
+    model = build_unet_jax(dtype="float32", stream_impl=stream_impl)
+    step = make_infer_step_jax(model, fused_encoder=False, with_probs=True,
+                               with_edge=True, with_att=True)
+
+    # the step reads only these two fields of a TrainState
+    state = State(variables["params"], variables["batch_stats"])
+    probs_j, preds_j, edge_j, atts_j = jax.tree.map(
+        np.asarray, step(state, jnp.asarray(images)))
+    probs, preds, edge, atts = port_outputs
+
+    assert preds.shape == (BATCH, SIZE, SIZE)
+    assert probs.shape == (BATCH, SIZE, SIZE, 4)
+    assert edge.shape == (BATCH, SIZE, SIZE, 1)
+    agree = float((preds.numpy() == preds_j).mean())
+    assert agree >= 0.999, agree
+    np.testing.assert_allclose(probs.numpy(), probs_j, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(edge.numpy(), edge_j, rtol=0, atol=1e-4)
+    assert len(atts) == len(atts_j) == 7
+    for i, (a, r) in enumerate(zip(atts, atts_j)):
+        assert a.shape == r.shape == (BATCH, SIZE, SIZE, 1), i
+        np.testing.assert_allclose(a.numpy(), r, rtol=0, atol=1e-4,
+                                   err_msg=f"map {i}")
+
+
+def test_port_never_imports_jax():
+    """Importing the package and every one of its modules leaves jax out
+    of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import saunet_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
+        " pkg.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert len(names) > 20, names\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'flax', 'optax', 'saunet_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.mark.parametrize("out_hw", [(32, 32), (17, 40)])
+def test_resize_bilinear_matches_jax(out_hw):
+    from saunet_tpu.ops.resize import resize_bilinear as resize_jax
+    from saunet_tpu_torch.ops.resize import resize_bilinear
+
+    x = np.random.RandomState(5).randn(2, 8, 12, 3).astype(np.float32)
+    ref = np.asarray(resize_jax(jnp.asarray(x), out_hw))
+    ours = resize_bilinear(torch.from_numpy(x).permute(0, 3, 1, 2), out_hw)
+    np.testing.assert_allclose(ours.permute(0, 2, 3, 1).numpy(), ref,
+                               rtol=0, atol=1e-5)
+
+
+def test_normalize_for_eval_matches_jax():
+    from saunet_tpu.data.augment import normalize_for_eval as norm_jax
+    from saunet_tpu_torch.data import normalize_for_eval
+
+    x = (np.random.RandomState(6).rand(3, 20, 24) * 300).astype(np.float32)
+    ref = np.asarray(norm_jax(jnp.asarray(x)))
+    ours = normalize_for_eval(torch.from_numpy(x)).numpy()
+    assert ours.shape == ref.shape == (3, 20, 24, 3)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
