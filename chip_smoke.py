@@ -23,11 +23,34 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. serving: 3 synthetic volumes (256x256x10) through
      `saunet_tpu_torch.cli.test_and_pack`: NIfTI outputs in the original
      geometry with labels in {0..3}, timing.json, and the kernels launched.
-Then a {"kernels": [...]} line and, last, the {"ok": true, "device": ...}
-line. Without CUDA, or without the package beside it, it exits non-zero.
+  6. warp kernel (K5) vs plain on the train path's tensors, 64 slices at
+     224^2: `gather_image` in its three modes, exact; `warp_image_label` on
+     coordinates from the port's own augmentation draws, image within
+     1e-6*max|ref|, labels exact. Median times of the kernels, their plain
+     versions and the library calls (torch.gather, grid_sample).
+  7. train step: full-width bf16 SAUNet, 64 slices at 224^2,
+     `make_augment_fn` + `make_train_step` with radam(1e-4). Counters zeroed
+     just before one step and read just after: 1 warp, 1 Canny, no dense
+     block. Every loss part finite; slices/s over 5 steps after 2 warm-up,
+     peak memory, CUDA-event time of augmentation, forward+loss, backward
+     and optimizer, a torch.profiler window (top operations, device idle
+     share); on a fixed batch with lr 1e-3 the loss after 10 steps is below
+     the first.
+  8. train CLI: synthetic volumes through `saunet_tpu_torch.cli.train`
+     for one epoch at crop 224 on the card: per-class IoU printed, best.json
+     and a checkpoint written; counters zeroed just before and read just
+     after: 1 warp and 1 Canny per train step, 1 Canny and 4 dense blocks
+     per validation batch. The checkpoint is then served by test_and_pack.
+Then a {"kernels": [...]} line (with each kernel's bound: the larger of its
+bytes over 3.35 TB/s and its operations over the peak rate of their type,
+H100 SXM data sheet) and, last, the {"ok": true, "device": ...} line.
+Without CUDA, or without the package beside it, it exits non-zero. Long
+outputs (the profiler table) go to chiprun_out/.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -39,10 +62,30 @@ import time
 BATCH, SIZE = 64, 224
 CANNY_LARGE = (8, 512, 512)
 TIMED_RUNS = 20
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# Canny's work per pixel, counted from csrc/canny.cu: Sobel 2x17, L1
+# magnitude 3, direction 8, non-maximum suppression 4, thresholds 2,
+# 8 hysteresis rounds of 9, scale 1
+CANNY_OPS_PER_PIXEL = 124
+# the warp's per output pixel: floors and fractions 4, bounds 4, 4 bf16
+# roundings, bilinear combine 11, label pick 3
+WARP_OPS_PER_PIXEL = 30
+OUT_DIR = "chiprun_out"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the least time for `nbytes` of device memory
+    traffic and `ops` operations on this card's published peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -68,8 +111,9 @@ def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def synthetic_slices(n: int, h: int, w: int, gen, device):
-    """(n, h, w) f32 slices: bright ellipses on a ramp plus noise."""
+def synthetic_labelled(n: int, h: int, w: int, gen, device):
+    """(n, h, w) f32 slices, bright ellipses on a ramp plus noise, and their
+    int32 labels: the ellipse cut into classes 1..3 by its centre lines."""
     import torch
 
     yy, xx = torch.meshgrid(torch.linspace(-1, 1, h),
@@ -78,7 +122,14 @@ def synthetic_slices(n: int, h: int, w: int, gen, device):
     ry, rx = 0.2 + 0.3 * torch.rand(2, n, 1, 1, generator=gen)
     blob = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1).float()
     img = 200 * blob + 60 * (xx + 1) + 20 * torch.rand(n, h, w, generator=gen)
-    return img.to(device)
+    lab = blob * (1 + (xx > cx).float()
+                  + 2 * ((yy > cy) & (xx <= cx)).float())
+    return img.to(device), lab.to(torch.int32).to(device)
+
+
+def synthetic_slices(n: int, h: int, w: int, gen, device):
+    """(n, h, w) f32 slices: bright ellipses on a ramp plus noise."""
+    return synthetic_labelled(n, h, w, gen, device)[0]
 
 
 def phase_device():
@@ -102,7 +153,7 @@ def phase_build():
     from saunet_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    paths = build.build(["canny", "dense_block"])
+    paths = build.build(["canny", "dense_block", "warp"])
     for name, path in paths.items():
         build.load(name)
         log(f"built {name}: {os.path.relpath(path)}")
@@ -137,11 +188,16 @@ def phase_canny(images, device):
         require(agree >= 0.999, f"canny kernel disagrees: {flips} flips")
         ms = cuda_ms(lambda: canny_edges_cuda(gray))
         plain_ms = cuda_ms(lambda: canny_edges(gray))
-        log(f"canny {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        px = gray.numel()
+        bound_ms, bound_by = bound(8 * px, CANNY_OPS_PER_PIXEL * px,
+                                   F32_OPS_PER_S)
+        log(f"canny {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if not result:
             result = {"max_abs_err": float((out - ref).abs().max()),
                       "flips": flips, "shape": list(shape), "ms": ms,
-                      "plain_ms": plain_ms}
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
     return result
 
 
@@ -161,9 +217,19 @@ def phase_dense_block(model, folded, images):
         encoder_apply_fused(model.encoder, folded, images, model.dtype,
                             capture)
     total_ms = total_plain = worst = worst_err = 0.0
+    nbytes = ops = 0.0
     for x, f in zip(inputs, folded):
         n, hw, _, c0 = x.shape
-        num_layers = f["w1"].shape[0]
+        num_layers, _, hidden = f["w1"].shape
+        growth = f["w2"].shape[-1] // 9
+        # input read once, output written once (bf16), operands once; two
+        # products per layer: 1x1 (c_in -> hidden) and 3x3 (hidden -> growth)
+        px = n * hw * hw
+        nbytes += 2 * px * (2 * c0 + growth * num_layers) + sum(
+            v.numel() * v.element_size() for v in f.values())
+        ops += sum(2 * px * ((c0 + growth * l) * hidden
+                             + 9 * hidden * growth)
+                   for l in range(num_layers))
         with torch.inference_mode():
             out = dense_block(x, f)
             ref = dense_block_plain(x, f)
@@ -189,8 +255,10 @@ def phase_dense_block(model, folded, images):
         total_plain += plain_ms
         worst = max(worst, max_err / tol)
         worst_err = max(worst_err, max_err)
+    bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
     return {"max_abs_err": worst_err, "max_err_over_tol": worst,
-            "ms": total_ms, "plain_ms": total_plain}
+            "ms": total_ms, "plain_ms": total_plain, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def build_model(device):
@@ -242,7 +310,12 @@ def phase_main_path(model, state, images):
     import torch
 
     from saunet_tpu_torch.models.fused_encoder import fold_encoder
-    from saunet_tpu_torch.ops.cuda import KERNELS, canny_edges_cuda, dense_block
+    from saunet_tpu_torch.ops.cuda import (
+        KERNELS,
+        canny_edges_cuda,
+        dense_block,
+        warp_image_label,
+    )
     from saunet_tpu_torch.train import make_infer_step
 
     step = make_infer_step(model, with_probs=True)
@@ -251,9 +324,10 @@ def phase_main_path(model, state, images):
     probs, preds, edge = step(state, images)
     torch.cuda.synchronize()
     launches = {"canny": canny_edges_cuda.launches,
-                "dense_block": dense_block.launches}
-    log(f"main path launches: {launches}")
-    require(launches == {"canny": 1, "dense_block": 4},
+                "dense_block": dense_block.launches,
+                "warp": warp_image_label.launches}
+    log(f"infer path launches: {launches}")
+    require(launches == {"canny": 1, "dense_block": 4, "warp": 0},
             f"main path did not run each kernel as expected: {launches}")
     require(preds.shape == (BATCH, SIZE, SIZE), f"preds {preds.shape}")
     require(bool(torch.isfinite(probs).all()), "probs not finite")
@@ -364,6 +438,346 @@ def phase_serving(model, device):
     return timing["ms_per_slice"]
 
 
+def phase_warp(device):
+    """K5 on the train path's tensors: the gather in its three modes and
+    the warp on coordinates from the port's augmentation draws."""
+    import torch
+    import torch.nn.functional as F
+
+    from saunet_tpu_torch.data.augment import coords_from_draws, draw
+    from saunet_tpu_torch.ops.cuda import (
+        gather_image,
+        gather_image_plain,
+        warp_image_label,
+        warp_image_label_plain,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    img, lab = synthetic_labelled(BATCH, SIZE, SIZE, gen, device)
+    dgen = torch.Generator(device=device).manual_seed(6)
+    sy, sx, _ = coords_from_draws(h=SIZE, w=SIZE, **draw(
+        dgen, BATCH, SIZE, SIZE, True, device))
+    px = img.numel()
+
+    out_i, out_l = warp_image_label(img, lab, sy, sx)
+    ref_i, ref_l = warp_image_label_plain(img, lab, sy, sx)
+    torch.cuda.synchronize()
+    err = float((out_i - ref_i).abs().max())
+    scale = float(ref_i.abs().max())
+    lab_diff = int((out_l != ref_l).sum())
+    inside = float(((sy > -1) & (sy < SIZE) & (sx > -1) & (sx < SIZE))
+                   .float().mean())
+    log(f"warp {tuple(img.shape)}: max|err| {err:.6g} max|ref| {scale:.6g} "
+        f"label mismatches {lab_diff}, inside share {inside:.4f}")
+    require(err <= 1e-6 * scale and lab_diff == 0,
+            "warp kernel disagrees with its plain version")
+    # library yardstick (timed only): bilinear grid_sample on the image and
+    # a nearest one on the labels, zero padding, pixel-centre corners
+    grid = torch.stack([sx / (SIZE - 1) * 2 - 1, sy / (SIZE - 1) * 2 - 1],
+                       dim=-1)
+    img4, lab4 = img[:, None], lab[:, None].float()
+
+    def library():
+        F.grid_sample(img4, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=True)
+        F.grid_sample(lab4, grid, mode="nearest", padding_mode="zeros",
+                      align_corners=True)
+
+    ms = cuda_ms(lambda: warp_image_label(img, lab, sy, sx))
+    plain_ms = cuda_ms(lambda: warp_image_label_plain(img, lab, sy, sx))
+    library_ms = cuda_ms(library)
+    bound_ms, bound_by = bound(24 * px, WARP_OPS_PER_PIXEL * px,
+                               F32_OPS_PER_S)
+    log(f"warp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "gather": {}}
+
+    for mode, lim in (("lane", SIZE), ("sublane", SIZE),
+                      ("flat", SIZE * SIZE)):
+        idx = torch.randint(0, lim, img.shape, generator=dgen,
+                            device=device, dtype=torch.int32)
+        out = gather_image(img, idx, mode)
+        ref = gather_image_plain(img, idx, mode)
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"gather kernel ({mode}) disagrees")
+        g_ms = cuda_ms(lambda: gather_image(img, idx, mode))
+        g_plain = cuda_ms(lambda: gather_image_plain(img, idx, mode))
+        g_bound, g_by = bound(12 * px, 0, F32_OPS_PER_S)
+        log(f"gather {mode}: exact; kernel {g_ms:.4f} ms, torch.gather "
+            f"{g_plain:.4f} ms, bound {g_bound:.4f} ms ({g_by})")
+        # the plain version is the one torch.gather call: it is also the
+        # library yardstick
+        result["gather"][mode] = {"max_abs_err": 0.0, "ms": g_ms,
+                                  "plain_ms": g_plain, "library_ms": g_plain,
+                                  "bound_ms": g_bound, "bound_by": g_by}
+    return result
+
+
+def _counts():
+    from saunet_tpu_torch.ops.cuda import (
+        canny_edges_cuda,
+        dense_block,
+        gather_image,
+        warp_image_label,
+    )
+    return {"canny": canny_edges_cuda.launches,
+            "dense_block": dense_block.launches,
+            "warp": warp_image_label.launches,
+            "gather": gather_image.launches}
+
+
+def _zero_counts():
+    from saunet_tpu_torch.ops.cuda import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _profile(step_fn, steps: int = 2) -> dict:
+    """torch.profiler over `steps` calls of `step_fn`: device time by
+    kernel, the union of kernel intervals against the host window, and the
+    top operations (the whole table goes to chiprun_out/)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    key = ("self_device_time_total"
+           if hasattr(prof.key_averages()[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    table = prof.key_averages().table(sort_by=key, row_limit=40)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "train_step_profile.txt"), "w") as f:
+        f.write(table)
+    top = sorted(((getattr(e, key), e.key) for e in prof.key_averages()
+                  if e.device_type != DeviceType.CUDA
+                  and getattr(e, key) > 0), reverse=True)[:12]
+    busy_ms = busy_us / 1e3
+    return {"window_ms": window_ms, "steps": steps,
+            "kernels": len(spans), "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / window_ms) if spans
+            else None,
+            "top_ops_self_device_ms": [[k, t / 1e3 / steps] for t, k in top]}
+
+
+def phase_train_step(device):
+    """The training main path at full width: b64 at 224^2, bf16."""
+    import torch
+
+    from saunet_tpu_torch.data import make_augment_fn
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.models.init import init_random_
+    from saunet_tpu_torch.train import (
+        create_train_state,
+        dual_loss,
+        make_train_step,
+        radam,
+    )
+
+    gen = torch.Generator().manual_seed(7)
+    model = init_random_(build_unet(dtype="bfloat16"), gen)
+    tx = radam(1e-4)
+    state = create_train_state(model, tx, device)
+    augment = make_augment_fn()
+    step = make_train_step(model, tx, augment_fn=augment)
+    img, lab = synthetic_labelled(BATCH, SIZE, SIZE, gen, device)
+    batch = {"image": img, "label": lab}
+    dgen = torch.Generator(device=device).manual_seed(8)
+
+    _zero_counts()
+    state, metrics = step(state, batch, dgen)
+    torch.cuda.synchronize()
+    launches = _counts()
+    log(f"train step launches: {launches}")
+    require(launches == {"canny": 1, "dense_block": 0, "warp": 1,
+                         "gather": 0},
+            f"train step did not run each kernel as expected: {launches}")
+    parts = {k: float(metrics[k]) for k in ("loss", "ce", "dice", "edge")}
+    log(f"train step loss parts: {parts}, acc {float(metrics['acc']):.4f}")
+    require(all(map(lambda v: v == v and abs(v) != float("inf"),
+                    parts.values())), "a loss part is not finite")
+
+    for _ in range(2):
+        state, metrics = step(state, batch, dgen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, dgen)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"train step b{BATCH} {SIZE}^2 bf16: {step_s * 1e3:.3f} ms median "
+        f"of 5 ({BATCH / step_s:.2f} slices/s), steps {times}, "
+        f"peak memory {peak / 2**30:.3f} GiB")
+
+    # the step's pieces, in its order, timed with CUDA events
+    pieces = {"augment": [], "forward_loss": [], "backward": [],
+              "optimizer": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.train()
+        ev[0].record()
+        b = augment(dgen, batch)
+        ev[1].record()
+        seg, edge = model(b["image"].permute(0, 3, 1, 2))
+        total, _ = dual_loss(seg.permute(0, 2, 3, 1),
+                             edge.permute(0, 2, 3, 1), b["label"], b["edge"])
+        ev[2].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        ev[3].record()
+        state.optimizer.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(pieces):
+            pieces[k].append(ev[i].elapsed_time(ev[i + 1]))
+        del b, seg, edge, total
+    pieces = {k: statistics.median(v) for k, v in pieces.items()}
+    log(f"train step pieces (CUDA events, ms, median of 3): {pieces}")
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch, dgen)
+
+    prof = _profile(one_step)
+    log(f"train step profile: window {prof['window_ms']:.3f} ms for "
+        f"{prof['steps']} steps, {prof['kernels']} kernels, device busy "
+        f"{prof['device_busy_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']}")
+    for name, ms in prof["top_ops_self_device_ms"]:
+        log(f"  {ms:10.4f} ms/step  {name}")
+
+    # a fixed batch at lr 1e-3: the loss falls
+    fixed = augment(dgen, batch)
+    tx_fixed = radam(1e-3)
+    state = create_train_state(model, tx_fixed, device)
+    fixed_step = make_train_step(model, tx_fixed)
+    losses = []
+    for _ in range(11):
+        state, metrics = fixed_step(state, fixed)
+        losses.append(float(metrics["loss"]))
+    log(f"fixed-batch losses, lr 1e-3: {losses}")
+    require(losses[-1] < losses[0],
+            "the loss did not fall over 10 steps on a fixed batch")
+    return launches, {"step_ms": step_s * 1e3,
+                      "slices_per_s": BATCH / step_s,
+                      "peak_memory_bytes": peak, "pieces_ms": pieces,
+                      "profile": prof, "first_loss_parts": parts,
+                      "fixed_batch_losses": losses}
+
+
+def _write_train_volumes(root, rs, patients=3, shape=(256, 256, 6)):
+    """Synthetic ACDC training volumes: an ellipse in three classes."""
+    import numpy as np
+
+    from saunet_tpu_torch.data import nifti
+
+    h, w, z = shape
+    yy, xx = np.mgrid[:h, :w]
+    for p in range(1, patients + 1):
+        pdir = os.path.join(root, "training", f"patient{p:03d}")
+        os.makedirs(pdir, exist_ok=True)
+        for fr in (1, 12):
+            r = 50 + 10 * p + 5 * (fr % 3)
+            inside = (yy - h // 2) ** 2 + (xx - w // 2) ** 2 < r * r
+            seg = (inside * (1 + (xx > w // 2) + 2 * ((yy > h // 2)
+                                                     & (xx <= w // 2))))
+            seg = seg.astype("uint8")[..., None].repeat(z, axis=2)
+            img = (60.0 * seg + 40 * rs.rand(h, w, z)).astype("float32")
+            base = os.path.join(pdir, f"patient{p:03d}_frame{fr:02d}")
+            nifti.save(img, base + ".nii.gz", pixdim=(1.5, 1.5, 10))
+            nifti.save(seg, base + "_gt.nii.gz", pixdim=(1.5, 1.5, 10))
+
+
+def phase_train_cli(device):
+    """One epoch of `cli.train` on the card, then `test_and_pack` serves
+    its checkpoint."""
+    import numpy as np
+
+    from saunet_tpu_torch.cli.test_and_pack import main as pack_main
+    from saunet_tpu_torch.cli.train import main as train_main
+    from saunet_tpu_torch.cli.train import parse_args
+    from saunet_tpu_torch.data import nifti
+
+    rs = np.random.RandomState(9)
+    batch, z = 8, 6
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        _write_train_volumes(root, rs, shape=(256, 256, z))
+        tdir = os.path.join(root, "testing", "patient101")
+        os.makedirs(tdir)
+        nifti.save((rs.rand(256, 256, z) * 300).astype(np.float32),
+                   os.path.join(tdir, "patient101_frame01.nii.gz"),
+                   pixdim=(1.5, 1.5, 10))
+        argv = ["--data-root", root, "--ckpt", os.path.join(tmp, "ckpt"),
+                "--num_epoch", "1", "--batch_size_per_device", str(batch),
+                "--crop_size", str(SIZE), "--device", str(device),
+                "--id", "smoke"]
+        buf = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_main(argv)
+        import torch
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+        out = buf.getvalue()
+        ious = [line for line in out.splitlines()
+                if line.startswith("class [")]
+        log("\n".join(ious))
+        # 5 training volumes and 1 validation volume of z slices
+        steps, val_batches = (5 * z) // batch, -(-z // batch)
+        log(f"train CLI: 1 epoch, {steps} steps, {val_batches} validation "
+            f"batches, {seconds:.3f} s; launches {launches}")
+        require(len(ious) == 3, "per-class IoU not printed")
+        require(launches == {"canny": steps + val_batches,
+                             "dense_block": 4 * val_batches, "warp": steps,
+                             "gather": 0},
+                f"train CLI did not run each kernel as expected: "
+                f"{launches}")
+        run = parse_args(argv).ckpt
+        files = sorted(os.listdir(run))
+        require("best.json" in files and "state_epoch_1.pt" in files,
+                f"train CLI wrote {files}")
+        out_dir = os.path.join(tmp, "out")
+        pack_main(["--id", "smoke", "--checkpoint",
+                   os.path.join(run, "state_epoch_1.pt"),
+                   "--data-root", root, "--crop_size", str(SIZE),
+                   "--no-visualize", "--save_test_path", out_dir,
+                   "--result", os.path.join(tmp, "res"),
+                   "--device", str(device)])
+        pred = nifti.load(os.path.join(out_dir, "patient101_ED.nii.gz")).data
+        require(pred.shape == (256, 256, z), f"served shape {pred.shape}")
+        require(set(np.unique(pred)) <= {0, 1, 2, 3}, "served labels")
+        log(f"served the train checkpoint: {pred.shape}, labels "
+            f"{sorted(np.unique(pred).tolist())}")
+    return launches, {"seconds": seconds, "steps": steps,
+                      "val_batches": val_batches}
+
+
 def main() -> int:
     try:
         import torch
@@ -396,32 +810,52 @@ def main() -> int:
         BATCH, SIZE, SIZE, torch.Generator().manual_seed(3), device))
     canny = phase_canny(images, device)
     dense = phase_dense_block(model, state.folded, images)
-    launches, rates = phase_main_path(model, state, images)
+    infer_launches, rates = phase_main_path(model, state, images)
     ms_per_slice = phase_serving(model, device)
+    del model, state, images
+    torch.cuda.empty_cache()
+    warp = phase_warp(device)
+    train_launches, train = phase_train_step(device)
+    torch.cuda.empty_cache()
+    cli_launches, train_cli = phase_train_cli(device)
     require("jax" not in sys.modules, "the port imported jax")
 
-    kernels = [
-        {"name": "canny", "route": "cuda",
-         "source": "saunet_tpu_torch/csrc/canny.cu",
-         "replaces": "saunet_tpu/ops/pallas/canny.py:230",
-         "also_replaces": "saunet_tpu/ops/pallas/canny.py:189",
-         "launches": launches["canny"], "max_abs_err": canny["max_abs_err"],
-         "flips": canny["flips"], "shape": canny["shape"],
-         "ms": canny["ms"], "plain_ms": canny["plain_ms"]},
-        {"name": "dense_block", "route": "cuda",
-         "source": "saunet_tpu_torch/csrc/dense_block.cu",
-         "replaces": "saunet_tpu/ops/pallas/dense_block.py:256",
-         "launches": launches["dense_block"],
-         "max_abs_err": dense["max_abs_err"],
-         "max_err_over_tol": dense["max_err_over_tol"],
-         "shape": f"4 DenseNet-121 blocks, {BATCH} slices at {SIZE}^2",
-         "ms": dense["ms"], "plain_ms": dense["plain_ms"]},
-    ]
+    by_path = {"infer": infer_launches, "train_step": train_launches,
+               "train_cli": cli_launches}
+
+    def launches(name):
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        return sum(counts.values()), counts
+
+    kernels = []
+    for name, source, replaces, res, extra in (
+            ("canny", "canny.cu", "saunet_tpu/ops/pallas/canny.py:230",
+             canny, {"also_replaces": "saunet_tpu/ops/pallas/canny.py:189",
+                     "flips": canny["flips"], "shape": canny["shape"]}),
+            ("dense_block", "dense_block.cu",
+             "saunet_tpu/ops/pallas/dense_block.py:256", dense,
+             {"max_err_over_tol": dense["max_err_over_tol"],
+              "shape": f"4 DenseNet-121 blocks, {BATCH} slices at "
+                       f"{SIZE}^2"}),
+            ("warp", "warp.cu", "tools/exp_gather.py:166", warp,
+             {"shape": [BATCH, SIZE, SIZE], "gather": warp["gather"]})):
+        total, counts = launches(name)
+        require(total > 0, f"{name} was not launched on the main paths")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"saunet_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": total,
+            "launches_by_path": counts, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res.get("library_ms"), **extra})
     log(f"infer slices/s: kernels {rates['slices_per_s']:.3f}, plain "
         f"{rates['plain_slices_per_s']:.3f}; serving "
-        f"{ms_per_slice:.4f} ms/slice; total {time.perf_counter() - t0:.1f} s")
+        f"{ms_per_slice:.4f} ms/slice; train {train['slices_per_s']:.3f} "
+        f"slices/s; total {time.perf_counter() - t0:.1f} s")
     log(card)
-    log(json.dumps({"infer": rates, "serving_ms_per_slice": ms_per_slice}))
+    log(json.dumps({"infer": rates, "serving_ms_per_slice": ms_per_slice,
+                    "train": train, "train_cli": train_cli}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,13 @@
 Load a checkpoint, run the ACDC test set with all z-slices of a volume as
 one batch (padded to a `--z_bucket` multiple), repack the argmax into the
 original 3D geometry (undo crop + nearest resample), save NIfTI volumes,
-and optionally write side-by-side PNGs. `--checkpoint` is a `torch.save`d
-port state_dict (see models/jax_weights.py to bridge JAX weights). The port
-has one stream layout: `--stream_impl` is accepted and runs the same math.
+and optionally write side-by-side PNGs. `--checkpoint` is a checkpoint of
+the port's train CLI (`state_epoch_<N>.pt`) or a `torch.save`d port
+state_dict (see models/jax_weights.py to bridge JAX weights); both are read
+by `train.checkpoint.restore_params_only`. It runs on the card (`--device
+cuda`, the default; a missing card is an error) unless another device is
+named. The port has one stream layout: `--stream_impl` is accepted and runs
+the same math.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 
 from ..data import ACDCTestDataset, nifti, normalize_for_eval, resample_to_orig
 from ..models import build_unet
-from ..train import InferState, make_infer_step
+from ..train import InferState, make_infer_step, restore_params_only
+from ..train.state import resolve_device
 from ..utils import AverageMeter
 
 
@@ -48,8 +53,8 @@ def parse_args(argv=None):
                         "<result>/<id>/attention/")
     p.add_argument("--z_bucket", default=4, type=int,
                    help="slice-batch bucket granularity")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                   else "cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' (default) needs a card")
     args = p.parse_args(argv)
     args.result = os.path.join(args.result, args.id)
     return args
@@ -92,11 +97,10 @@ def main(argv=None):
     for k, v in sorted(vars(args).items()):
         print(f"  {k:20} {v}")
 
+    device = resolve_device(args.device)
     model = build_unet(num_class=args.num_class, arch=args.arch_unet,
                        dtype=args.dtype)
-    model.load_state_dict(torch.load(args.checkpoint, map_location="cpu",
-                                     weights_only=True))
-    device = torch.device(args.device)
+    restore_params_only(args.checkpoint, model)
     state = InferState(model, device)
     infer = make_infer_step(model, with_att=args.attention_map)
 

@@ -1,0 +1,290 @@
+"""Training entry point: `python -m saunet_tpu_torch.cli.train <flags>`
+(counterpart of saunet_tpu/cli/train.py, same flags plus `--device`).
+
+The epoch loop: train steps with the augmentation on the device (the warp
+kernel), per-epoch evaluation with the last batch padded and masked,
+per-class IoU, the cosine LR schedule, `BestIoUPolicy` checkpoints
+(`state_epoch_<N>.pt`), `best.json` and `--resume`. It runs on the card
+(`--device cuda`, the default; a missing card is an error) or, when asked,
+on the CPU. The port has one stream layout and one dense-block layout:
+`--stream_impl` and `--encoder_concat` are accepted and run the same math.
+One device only: `--space` other than 1 raises.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import time
+
+import numpy as np
+import torch
+
+from ..data import (
+    ACDCDataset,
+    ArrayDataLoader,
+    RandomSampler,
+    edge_ground_truth,
+    make_augment_fn,
+    normalize_for_eval,
+    to_device,
+)
+from ..models import build_unet
+from ..train import (
+    BestIoUPolicy,
+    cosine_epoch_schedule,
+    create_optimizer,
+    create_train_state,
+    intersection_and_union,
+    make_eval_step,
+    make_train_step,
+    restore_checkpoint,
+    restore_params_only,
+    save_checkpoint,
+)
+from ..train.state import resolve_device
+from ..utils import AverageMeter
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="SAUNet (PyTorch) training")
+    # model
+    p.add_argument("--id", default="baseline",
+                   help="name identifying the model")
+    p.add_argument("--unet_arch", default="saunet")
+    p.add_argument("--weights_unet", default="",
+                   help="checkpoint to warm-start weights from")
+    p.add_argument("--pretrained", default="",
+                   help="torchvision densenet121 state_dict (.pth, or .npz "
+                        "from tools/convert_torchvision.py) to load into the "
+                        "encoder")
+    # paths
+    p.add_argument("--data-root", dest="data_root", type=str,
+                   default=os.getenv("DATA_ROOT", ""))
+    p.add_argument("--series-file", dest="series_file", type=str, default="")
+    p.add_argument("--ckpt", default="./ckpt")
+    # optimization
+    p.add_argument("--batch_size_per_device", "--batch_size_per_gpu",
+                   dest="batch_size_per_device", default=10, type=int)
+    p.add_argument("--num_epoch", default=120, type=int)
+    p.add_argument("--start_epoch", default=1, type=int)
+    p.add_argument("--optimizer", default="radam",
+                   choices=["sgd", "adam", "radam"])
+    p.add_argument("--lr_encoder", default=1e-4, type=float)
+    p.add_argument("--beta1", default=0.9, type=float)
+    p.add_argument("--weight_decay", default=1e-4, type=float)
+    p.add_argument("--fix_bn", action="store_true")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    # data
+    p.add_argument("--num_class", default=4, type=int)
+    p.add_argument("--k_split", default=1, type=int)
+    p.add_argument("--crop_size", default=256, type=int)
+    p.add_argument("--stream_impl", default="auto",
+                   choices=["auto", "xla", "packed"],
+                   help="accepted; the port has one shape-stream layout")
+    p.add_argument("--encoder_concat", default="auto",
+                   choices=["auto", "chain", "buffer", "fused"],
+                   help="accepted; the port concatenates layer by layer")
+    p.add_argument("--no_deform", action="store_true",
+                   help="disable elastic deformation")
+    p.add_argument("--slice_cache", default="",
+                   help="dir to memoise host-side volume preprocessing")
+    # misc
+    p.add_argument("--seed", default=304, type=int)
+    p.add_argument("--space", default=1, type=int,
+                   help="spatial-parallel mesh axis size (1 only)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume exactly (weights, optimizer, step) from the "
+                        "latest checkpoint in the run's ckpt dir")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' (default) needs a card")
+    args = p.parse_args(argv)
+    if args.space != 1:
+        raise ValueError("--space: the port trains on one device; spatial "
+                         "parallelism is not ported")
+
+    n_dev = 1
+    args.batch_size = args.batch_size_per_device * n_dev
+    args.id += f"-{args.unet_arch}-ndev{n_dev}-batchSize{args.batch_size}"
+    args.id += f"-LR_unet{args.lr_encoder}-epoch{args.num_epoch}"
+    args.ckpt = os.path.join(args.ckpt, args.id)
+    return args
+
+
+def _latest_checkpoint(ckpt_dir):
+    """(path, epoch) of the newest state_epoch_N.pt, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    best = None
+    for f in os.listdir(ckpt_dir):
+        m = re.match(r"state_epoch_(\d+)\.pt$", f)
+        if m:
+            e = int(m.group(1))
+            if best is None or e > best[1]:
+                best = (os.path.join(ckpt_dir, f), e)
+    return best
+
+
+def batches(n, batch_size, rng=None, drop_last=True):
+    idx = np.arange(n)
+    if rng is not None:
+        rng.shuffle(idx)
+    end = n - (n % batch_size) if drop_last else n
+    for i in range(0, end, batch_size):
+        yield idx[i:i + batch_size]
+
+
+def evaluate(eval_step, state, images, labels, batch_size, num_class):
+    """Batched validation pass: the last batch is padded by repeating its
+    last slice and the padding is masked out of the loss; histogram IoU
+    is accumulated over the real slices."""
+    inter = np.zeros(num_class)
+    union = np.zeros(num_class)
+    loss_meter = AverageMeter()
+    dev = state.device
+    for sel in batches(len(images), batch_size, drop_last=False):
+        pad = batch_size - len(sel)
+        sel_p = np.concatenate([sel, np.repeat(sel[-1:], pad)]) if pad else sel
+        lab = torch.from_numpy(labels[sel_p].astype(np.int32)).to(dev)
+        valid = torch.ones(len(sel_p), device=dev)
+        valid[len(sel):] = 0.0
+        batch = {"image": normalize_for_eval(
+                     torch.from_numpy(images[sel_p]).to(dev)),
+                 "label": lab, "edge": edge_ground_truth(lab, num_class),
+                 "valid": valid}
+        _, preds, metrics = eval_step(state, batch)
+        preds = preds[:len(sel)].cpu().numpy()
+        loss_meter.update(float(metrics["loss"]), weight=len(sel))
+        for j, k in enumerate(sel):
+            i_, u_ = intersection_and_union(preds[j], labels[k], num_class)
+            inter += i_
+            union += u_
+    iou = inter / (union + 1e-10)
+    return iou[1:], loss_meter.average()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    print("Input arguments:")
+    for k, v in sorted(vars(args).items()):
+        print(f"  {k:24} {v}")
+
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    # --- data ---------------------------------------------------------
+    series = args.series_file or None
+    ds_train = ACDCDataset(args.data_root, split="train", series_file=series,
+                           k_split=args.k_split, target_size=args.crop_size)
+    ds_val = ACDCDataset(args.data_root, split="val", series_file=series,
+                         k_split=args.k_split, target_size=args.crop_size)
+    print(f"loading {len(ds_train)} train / {len(ds_val)} val volumes ...")
+    t0 = time.time()
+    cache = args.slice_cache or None
+    train_imgs, train_labs, _ = ds_train.load_slices(cache_dir=cache)
+    val_imgs, val_labs, _ = ds_val.load_slices(cache_dir=cache)
+    print(f"  {len(train_imgs)} train / {len(val_imgs)} val slices "
+          f"({time.time() - t0:.1f}s)")
+
+    steps_per_epoch = max(len(train_imgs) // args.batch_size, 1)
+
+    # --- model / optimizer -------------------------------------------
+    model = build_unet(num_class=args.num_class, arch=args.unet_arch,
+                       dtype=args.dtype)
+    schedule = cosine_epoch_schedule(args.lr_encoder, args.num_epoch,
+                                     steps_per_epoch)
+    tx = create_optimizer(args.optimizer, schedule, beta1=args.beta1,
+                          weight_decay=args.weight_decay)
+    if args.pretrained:
+        from ..models.densenet import load_pretrained_encoder
+        load_pretrained_encoder(args.pretrained, model)
+        print(f"Loaded pretrained encoder weights from {args.pretrained}.")
+    if args.weights_unet:
+        restore_params_only(args.weights_unet, model)
+        print("Loaded pretrained UNet weights.")
+    state = create_train_state(model, tx, device)
+    if args.resume:
+        latest = _latest_checkpoint(args.ckpt)
+        if latest:
+            restore_checkpoint(latest[0], state)
+            args.start_epoch = latest[1] + 1
+            print(f"Resumed from {latest[0]} (epoch {latest[1]}); "
+                  f"continuing at epoch {args.start_epoch}")
+
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: {args.unet_arch}  params: {n_params / 1e6:.2f}M")
+
+    augment = make_augment_fn(num_classes=args.num_class,
+                              enable_deform=not args.no_deform)
+    train_step = make_train_step(model, tx, num_class=args.num_class,
+                                 augment_fn=augment, fix_bn=args.fix_bn)
+    eval_step = make_eval_step(model, num_class=args.num_class)
+
+    # --- epoch loop ---------------------------------------------------
+    history = {"train": {"epoch": [], "loss": [], "acc": [], "jaccard": []},
+               "val": {"epoch": [], "iou": [], "loss": []}}
+    policy = BestIoUPolicy()
+    shuffle_rng = np.random.RandomState(args.seed)
+    os.makedirs(args.ckpt, exist_ok=True)
+
+    sampler = RandomSampler(len(train_imgs), shuffle_rng)
+    loader = ArrayDataLoader(
+        {"image": train_imgs, "label": train_labs.astype(np.int32)},
+        batch_size=args.batch_size, sampler=sampler,
+        place=to_device(device), prefetch=2)
+
+    for epoch in range(args.start_epoch, args.num_epoch + 1):
+        loss_m, acc_m = AverageMeter(), AverageMeter()
+        jac_m = AverageMeter()
+        time_m = AverageMeter()
+        tic = time.time()
+        for it, batch in enumerate(loader):
+            state, metrics = train_step(state, batch, gen)
+            loss_m.update(float(metrics["loss"]))
+            acc_m.update(float(metrics["acc"]) * 100)
+            jac_m.update(metrics["jaccard"].cpu().numpy() * 100)
+            time_m.update(time.time() - tic)
+            tic = time.time()
+            if (it + 1) % 10 == 0:
+                lr_now = float(schedule(state.step - 1))
+                jac = np.round(jac_m.average(), 2)
+                print(f"Epoch: [{epoch}/{args.num_epoch}] "
+                      f"Iter: [{it + 1}/{steps_per_epoch}] "
+                      f"Time: {time_m.average():.2f}s lr: {lr_now:.6f} "
+                      f"Acc: {acc_m.average():.2f} "
+                      f"Loss: {loss_m.average():.4f} Jaccard: {jac}")
+
+        history["train"]["epoch"].append(epoch)
+        history["train"]["loss"].append(loss_m.average())
+        history["train"]["acc"].append(acc_m.average())
+        history["train"]["jaccard"].append(
+            float(np.mean(jac_m.average())))
+
+        iou, val_loss = evaluate(eval_step, state, val_imgs, val_labs,
+                                 args.batch_size, args.num_class)
+        for i, v in enumerate(iou, start=1):
+            print(f"class [{i}], IoU: {v:.4f}")
+        print(f"val loss: {val_loss:.4f}")
+        history["val"]["epoch"].append(epoch)
+        history["val"]["iou"].append([float(v) for v in iou])
+        history["val"]["loss"].append(float(val_loss))
+
+        if policy.update(epoch, iou, args.num_epoch):
+            path = save_checkpoint(args.ckpt, f"epoch_{epoch}", state,
+                                   history)
+            print(f"Saved checkpoint {path}")
+
+    with open(os.path.join(args.ckpt, "best.json"), "w") as f:
+        json.dump({**policy.best, **policy.best_epoch}, f, indent=2)
+    print("Training Done!")
+
+
+if __name__ == "__main__":
+    main()

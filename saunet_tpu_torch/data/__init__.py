@@ -1,5 +1,6 @@
-"""Host data path: NIfTI codec, ACDC datasets and geometry (numpy/scipy,
-copied from saunet_tpu/data) and the eval normalisation (torch)."""
+"""Data path: NIfTI codec, ACDC datasets and geometry (numpy/scipy, copied
+from saunet_tpu/data), the prefetching loader, and the training
+augmentation and eval normalisation on the device (torch)."""
 from . import nifti
 from .acdc import (
     ACDCDataset,
@@ -11,10 +12,12 @@ from .acdc import (
     resample_to_orig,
     undo_crop,
 )
-from .augment import normalize_for_eval
+from .augment import edge_ground_truth, make_augment_fn, normalize_for_eval
+from .loader import ArrayDataLoader, RandomSampler, to_device
 from .nifti import NiftiImage, load, save
 
-__all__ = ["ACDCDataset", "ACDCTestDataset", "NiftiImage", "Volume",
-           "kfold_split", "load", "nifti", "normalize_for_eval",
+__all__ = ["ACDCDataset", "ACDCTestDataset", "ArrayDataLoader", "NiftiImage",
+           "RandomSampler", "Volume", "edge_ground_truth", "kfold_split",
+           "load", "make_augment_fn", "nifti", "normalize_for_eval",
            "pad_center_crop", "read_series_file", "resample_to_orig", "save",
-           "undo_crop"]
+           "to_device", "undo_crop"]

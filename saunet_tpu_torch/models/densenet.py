@@ -1,4 +1,4 @@
-"""DenseNet-121 feature encoder, NCHW, forward only (counterpart of
+"""DenseNet-121 feature encoder, NCHW (counterpart of
 saunet_tpu/models/densenet.py).
 
 Two quirks of SAUNet's use of torchvision's densenet121 are kept:
@@ -6,9 +6,18 @@ Two quirks of SAUNet's use of torchvision's densenet121 are kept:
     runs at H/2;
   * f5 is denseblock4 + norm5 with no trailing ReLU.
 The taps f2..f4 are the transition outputs after their 2x2 average pool.
+
+The dense blocks concatenate layer by layer (the JAX package's 'chain'
+layout, its default); its 'buffer' and 'fused' layouts store the same math
+differently for the TPU and are not ported. The module names are
+torchvision's, so `load_pretrained_encoder` maps a densenet121 state_dict
+by name.
 """
 from __future__ import annotations
 
+import re
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -101,3 +110,33 @@ class DenseNetEncoder(nn.Module):
                 taps.append(h)
         f2, f3, f4 = taps
         return f1, f2, f3, f4, self.norm5(h)
+
+
+def load_pretrained_encoder(path: str, model: nn.Module) -> nn.Module:
+    """Load torchvision densenet121 ImageNet weights (`features.*` of a
+    torch .pth state_dict, or the .npz of tools/convert_torchvision.py)
+    into `model.encoder`; returns `model`.
+
+    Legacy `norm.1`-style names are re-joined; the classifier is ignored.
+    Every encoder entry must be present with its shape (BN batch counters
+    excepted, which old checkpoints lack)."""
+    if path.endswith(".npz"):
+        raw = {k: torch.from_numpy(v) for k, v in np.load(path).items()}
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        if "state_dict" in raw:
+            raw = raw["state_dict"]
+    encoder = model.encoder
+    sd = {}
+    for name, v in raw.items():
+        if not name.startswith("features."):
+            continue
+        name = re.sub(r"\.(norm|relu|conv)\.(\d+)\.", r".\1\2.",
+                      name[len("features."):])
+        sd[name] = torch.as_tensor(v)
+    want = encoder.state_dict()
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, v)
+    encoder.load_state_dict(sd, strict=True)
+    return model

@@ -6,8 +6,16 @@ counts its kernel launches in `<wrapper>.launches`.
 """
 from .canny import canny_edges_cuda
 from .dense_block import dense_block, dense_block_plain, fold_dense_block_params
+from .warp import (
+    gather_image,
+    gather_image_plain,
+    warp_image_label,
+    warp_image_label_plain,
+)
 
-KERNELS = (canny_edges_cuda, dense_block)
+KERNELS = (canny_edges_cuda, dense_block, gather_image, warp_image_label)
 
 __all__ = ["KERNELS", "canny_edges_cuda", "dense_block",
-           "dense_block_plain", "fold_dense_block_params"]
+           "dense_block_plain", "fold_dense_block_params", "gather_image",
+           "gather_image_plain", "warp_image_label",
+           "warp_image_label_plain"]

@@ -25,9 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
-# Per-kernel extra flags. Canny keeps the plain version's order of
-# operations exactly: no fused multiply-add contraction.
-EXTRA_FLAGS: Dict[str, list] = {"canny": ["-fmad=false"], "dense_block": []}
+# Per-kernel extra flags. Canny and the warp keep their plain versions'
+# order of operations exactly: no fused multiply-add contraction.
+EXTRA_FLAGS: Dict[str, list] = {"canny": ["-fmad=false"], "dense_block": [],
+                                "warp": ["-fmad=false"]}
 
 
 def _nvcc() -> str:
@@ -106,6 +107,11 @@ def load(name: str) -> ctypes.CDLL:
         lib.dense_block_growth.restype = i
         lib.dense_block_hidden.argtypes = []
         lib.dense_block_hidden.restype = i
+    elif name == "warp":
+        lib.gather_image_forward.argtypes = [p, p, p, i, i, i, i, p]
+        lib.gather_image_forward.restype = i
+        lib.warp_forward.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.warp_forward.restype = i
     return lib
 
 

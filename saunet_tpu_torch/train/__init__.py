@@ -1,3 +1,24 @@
-from .state import InferState, make_infer_step
+from .checkpoint import (
+    BestIoUPolicy,
+    restore_checkpoint,
+    restore_params_only,
+    save_checkpoint,
+)
+from .losses import DEFAULT_CLASS_WEIGHTS, dual_loss
+from .metrics import intersection_and_union, pixel_acc
+from .optim import cosine_epoch_schedule, create_optimizer, radam
+from .state import (
+    InferState,
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_infer_step,
+    make_train_step,
+)
 
-__all__ = ["InferState", "make_infer_step"]
+__all__ = ["BestIoUPolicy", "DEFAULT_CLASS_WEIGHTS", "InferState",
+           "TrainState", "cosine_epoch_schedule", "create_optimizer",
+           "create_train_state", "dual_loss", "intersection_and_union",
+           "make_eval_step", "make_infer_step", "make_train_step",
+           "pixel_acc", "radam", "restore_checkpoint", "restore_params_only",
+           "save_checkpoint"]

@@ -1,0 +1,80 @@
+"""Dual-task loss: class-weighted cross-entropy + soft Dice + edge BCE
+(counterpart of saunet_tpu/train/losses.py::dual_loss and its parts).
+
+Layouts are the JAX package's: logits (N, H, W, C), edge probabilities
+(N, H, W, 1), labels (N, H, W) int. All reductions run in f32 whatever the
+model's compute dtype. `sample_mask` (N,) {0, 1} removes padded samples
+from every reduction. The lane-packed `dual_loss_packed` is a TPU layout of
+the same math and is not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+DEFAULT_CLASS_WEIGHTS = (1.0, 4.0, 5.0, 1.0)
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           class_weights=DEFAULT_CLASS_WEIGHTS,
+                           sample_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Weighted mean of the pixel NLL, normalised by the sum of the pixel
+    weights (torch's `CrossEntropyLoss(weight=...)` semantics)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = labels.long()
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    w = torch.as_tensor(class_weights, dtype=torch.float32,
+                        device=logits.device)[labels]
+    if sample_mask is not None:
+        w = w * sample_mask.float()[:, None, None]
+    return torch.sum(w * nll) / torch.sum(w)
+
+
+def dice_loss(labels: torch.Tensor, logits: torch.Tensor, eps: float = 1e-7,
+              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1 - soft Dice over softmax probabilities, reduced over (N, H, W)
+    jointly and averaged over classes."""
+    logits = logits.float()
+    probas = torch.softmax(logits, dim=-1)
+    one_hot = torch.nn.functional.one_hot(
+        labels.long(), logits.shape[-1]).float()
+    if sample_mask is not None:
+        m = sample_mask.float()[:, None, None, None]
+        probas = probas * m
+        one_hot = one_hot * m
+    dims = (0, 1, 2)
+    intersection = torch.sum(probas * one_hot, dim=dims)
+    cardinality = torch.sum(probas + one_hot, dim=dims)
+    return 1.0 - torch.mean(2.0 * intersection / (cardinality + eps))
+
+
+def edge_bce(edge_probs: torch.Tensor, edge_targets: torch.Tensor,
+             eps: float = 1e-7,
+             sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean binary cross-entropy on probabilities clipped to [eps, 1-eps]."""
+    p = torch.clamp(edge_probs.float(), eps, 1.0 - eps)
+    t = edge_targets.float()
+    ll = t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p)
+    if sample_mask is None:
+        return -torch.mean(ll)
+    m = sample_mask.float().reshape((-1,) + (1,) * (ll.dim() - 1))
+    px = float(ll[0].numel())
+    return -torch.sum(ll * m) / (torch.sum(sample_mask.float()) * px)
+
+
+def dual_loss(seg_logits: torch.Tensor, edge_probs: torch.Tensor,
+              seg_targets: torch.Tensor, edge_targets: torch.Tensor,
+              class_weights=DEFAULT_CLASS_WEIGHTS,
+              sample_mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {'loss', 'ce', 'dice', 'edge'}); total = dice + ce + edge."""
+    if edge_targets.dim() == edge_probs.dim() - 1:
+        edge_targets = edge_targets[..., None]
+    ce = weighted_cross_entropy(seg_logits, seg_targets, class_weights,
+                                sample_mask=sample_mask)
+    dice = dice_loss(seg_targets, seg_logits, sample_mask=sample_mask)
+    edge = edge_bce(edge_probs, edge_targets, sample_mask=sample_mask)
+    total = dice + ce + edge
+    return total, {"loss": total, "ce": ce, "dice": dice, "edge": edge}

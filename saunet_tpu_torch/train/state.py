@@ -1,28 +1,190 @@
-"""Inference step (counterpart of saunet_tpu/train/state.py::make_infer_step).
+"""Train state and the train, eval and infer steps (counterpart of
+saunet_tpu/train/state.py).
 
-`InferState` (model + device, plus the dense-block operands folded once)
-takes the place of the JAX package's TrainState for serving. The step is
-`_fused_forward`'s counterpart: the kernel encoder, then `SAUNet.decode`.
-Layouts at the step are the JAX package's: NHWC images in, (N, H, W)
-predictions out, NHWC probabilities, edge and attention maps.
+`TrainState` holds the model, the optimizer (with its state) and the step
+count; the steps update it in place and return it, where the JAX steps
+return a new pytree. `InferState` (model + device, plus the dense-block
+operands folded once) serves. Layouts at the steps are the JAX package's:
+NHWC images in, (N, H, W) predictions out, NHWC probabilities, edge and
+attention maps. Every entry point runs on the card unless the caller names
+another device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from ..models.fused_encoder import encoder_apply_fused, fold_encoder
+from .losses import DEFAULT_CLASS_WEIGHTS, dual_loss
+from .metrics import pixel_acc
+
+
+def resolve_device(device: Optional[torch.device | str]) -> torch.device:
+    """`device`, or the first CUDA device when None; raises when the card
+    that is asked for (or defaulted to) is missing."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return device
 
 
 class InferState:
-    """A model in eval mode on `device`, with its dense-block kernel
-    operands folded once (re-create the state after changing weights)."""
+    """A model in eval mode on `device` (default: the card), with its
+    dense-block kernel operands folded once (re-create the state after
+    changing weights)."""
 
     def __init__(self, model, device: Optional[torch.device | str] = None):
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.folded = fold_encoder(self.model.encoder, model.dtype)
+
+
+class TrainState:
+    """The model (on its device), the optimizer made by `tx` from it, the
+    number of steps taken, and the dense-block operands folded for the eval
+    step (refolded when the step count moves)."""
+
+    def __init__(self, model: nn.Module, tx: Callable, device: torch.device,
+                 step: int = 0):
+        self.device = device
+        self.model = model
+        self.tx = tx
+        self.optimizer = tx(model)
+        self.step = step
+        self._folded = None
+
+    def folded_encoder(self):
+        if self._folded is None or self._folded[0] != self.step:
+            self._folded = (self.step, fold_encoder(self.model.encoder,
+                                                    self.model.dtype))
+        return self._folded[1]
+
+
+def create_train_state(model: nn.Module, tx: Callable,
+                       device: Optional[torch.device | str] = None
+                       ) -> TrainState:
+    """Move `model` to `device` (default: the card) and build its
+    optimizer with `tx` (train/optim.py)."""
+    device = resolve_device(device)
+    return TrainState(model.to(device), tx, device)
+
+
+def _check_state(state, model, what: str) -> None:
+    # as in the JAX steps, `model` is the computation and `state` holds its
+    # weights
+    if state.model is not model:
+        raise ValueError(f"{what}: state holds another model")
+
+
+def _batch_on(batch: Dict[str, torch.Tensor], device) -> dict:
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
+                    class_weights=DEFAULT_CLASS_WEIGHTS,
+                    augment_fn: Optional[Callable] = None,
+                    fix_bn: bool = False):
+    """`step(state, batch, gen=None) -> (state, metrics)`: optional
+    augmentation `augment_fn(gen, batch)`, the forward in train mode, the
+    dual loss, backward and the optimizer update, and the metrics `loss`,
+    `ce`, `dice`, `edge`, `acc` and `jaccard` (of the forward before the
+    update), as tensors on the state's device.
+
+    batch: {image (N, H, W, 3), label (N, H, W), edge (N, H, W, 1)}, or the
+    augmentation's input {image (N, H, W), label} with `augment_fn`.
+    `fix_bn` keeps every BatchNorm in eval mode (running statistics
+    untouched) while all parameters, the BN affine included, still get
+    gradients: the reference's --fix_bn."""
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             gen: Optional[torch.Generator] = None):
+        _check_state(state, model, "make_train_step")
+        if state.tx is not tx:
+            raise ValueError("make_train_step: state holds another "
+                             "optimizer")
+        batch = _batch_on(batch, state.device)
+        if augment_fn is not None:
+            batch = augment_fn(gen, batch)
+        model.train()
+        if fix_bn:
+            for m in bns:
+                m.eval()
+        seg, edge = model(batch["image"].permute(0, 3, 1, 2))
+        seg = seg.permute(0, 2, 3, 1)
+        total, parts = dual_loss(seg, edge.permute(0, 2, 3, 1),
+                                 batch["label"], batch["edge"],
+                                 class_weights)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            acc, jaccard = pixel_acc(seg.argmax(dim=-1), batch["label"],
+                                     num_class)
+        metrics = {k: v.detach() for k, v in parts.items()}
+        metrics["acc"] = acc
+        metrics["jaccard"] = jaccard
+        return state, metrics
+
+    return step
+
+
+def use_fused_encoder(model: nn.Module, images: torch.Tensor) -> bool:
+    """The dense-block kernel encoder serves a bf16 model on a CUDA tensor
+    (counterpart of `_use_fused_encoder`: the kernel takes bf16 only); any
+    other model or device runs the plain forward."""
+    return images.is_cuda and getattr(model, "dtype", None) == torch.bfloat16
+
+
+def _forward_eval(model, folded, images: torch.Tensor, fused: bool,
+                  return_att: bool = False):
+    """Eval forward of NHWC images: (logits NCHW, edge NCHW[, atts])."""
+    x = images.permute(0, 3, 1, 2)
+    if not fused:
+        return model(x, return_att=return_att)
+    _, *taps = encoder_apply_fused(model.encoder, folded, images,
+                                   model.dtype)
+    return model.decode([t.permute(0, 3, 1, 2) for t in taps], x,
+                        return_att=return_att)
+
+
+def make_eval_step(model: nn.Module, num_class: int = 4,
+                   class_weights=DEFAULT_CLASS_WEIGHTS,
+                   with_probs: bool = False):
+    """`step(state, batch) -> (probs | None, preds, metrics)` in eval mode:
+    the dual loss (masked by the optional (N,) `valid` entry, so a padded
+    last batch reports the loss of its real samples only), `acc` and
+    `jaccard`. The encoder runs on the dense-block kernel for a bf16 model
+    on the card (`use_fused_encoder`)."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        _check_state(state, model, "make_eval_step")
+        batch = _batch_on(batch, state.device)
+        images = batch["image"]
+        fused = use_fused_encoder(model, images)
+        model.eval()
+        with torch.inference_mode():
+            seg, edge = _forward_eval(
+                model, state.folded_encoder() if fused else None, images,
+                fused)
+            seg = seg.permute(0, 2, 3, 1)
+            total, parts = dual_loss(seg, edge.permute(0, 2, 3, 1),
+                                     batch["label"], batch["edge"],
+                                     class_weights,
+                                     sample_mask=batch.get("valid"))
+            preds = seg.argmax(dim=-1)
+            acc, jaccard = pixel_acc(preds, batch["label"], num_class)
+            probs = torch.softmax(seg, dim=-1) if with_probs else None
+        metrics = dict(parts)
+        metrics["acc"] = acc
+        metrics["jaccard"] = jaccard
+        return probs, preds, metrics
+
+    return step
 
 
 def make_infer_step(model, with_probs: bool = False, with_edge: bool = False,
@@ -32,18 +194,15 @@ def make_infer_step(model, with_probs: bool = False, with_edge: bool = False,
 
     images: (N, H, W, 3). preds: (N, H, W) int64. probs (N, H, W, C) and
     edge (N, H, W, 1) are None unless `with_probs` / `with_edge` is set.
-    As in the JAX step, `model` is the computation and `state` holds its
-    weights: `state` must have been made from `model`."""
+    The encoder always runs through the dense-block kernel wrapper (the
+    kernel on the card, its plain version on the CPU)."""
 
     def step(state: InferState, images: torch.Tensor):
+        _check_state(state, model, "make_infer_step")
         m = state.model
-        if m is not model:
-            raise ValueError("make_infer_step: state holds another model")
         with torch.inference_mode():
             x = images.to(state.device)
-            _, *taps = encoder_apply_fused(m.encoder, state.folded, x, m.dtype)
-            out = m.decode([t.permute(0, 3, 1, 2) for t in taps],
-                           x.permute(0, 3, 1, 2), return_att=with_att)
+            out = _forward_eval(m, state.folded, x, True, with_att)
             seg, edge_full = out[0], out[1]
             preds = seg.argmax(dim=1)
             probs = (torch.softmax(seg, dim=1).permute(0, 2, 3, 1)

@@ -16,7 +16,6 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-from torch import nn
 
 from saunet_tpu.models import build_unet as build_unet_jax
 from saunet_tpu.train.state import make_infer_step as make_infer_step_jax
@@ -24,7 +23,7 @@ from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from saunet_tpu_torch.ops.cuda import canny_edges_cuda, dense_block
 from saunet_tpu_torch.train import InferState, make_infer_step
-from torch_port_util import fill_variables
+from torch_port_util import fill_variables, to_jax_variables
 
 BATCH, SIZE = 2, 32
 State = namedtuple("State", ["params", "batch_stats"])
@@ -57,34 +56,6 @@ def port_outputs(variables, images):
     # the CPU tensors took the plain versions: no kernel was launched
     assert (canny_edges_cuda.launches, dense_block.launches) == launches
     return out
-
-
-def to_jax_variables(model: nn.Module) -> dict:
-    """A port model's weights as the JAX package's variable tree (the
-    inverse of `from_jax_variables`)."""
-    params, stats = {}, {}
-
-    def put(tree, path, value):
-        for p in path[:-1]:
-            tree = tree.setdefault(p, {})
-        tree[path[-1]] = value.detach().numpy()
-
-    for name, m in model.named_modules():
-        path = tuple(name.split("."))
-        if isinstance(m, nn.BatchNorm2d):
-            put(params, path + ("scale",), m.weight)
-            put(params, path + ("bias",), m.bias)
-            put(stats, path + ("mean",), m.running_mean)
-            put(stats, path + ("var",), m.running_var)
-        elif isinstance(m, nn.ConvTranspose2d):
-            put(params, path + ("kernel",),
-                m.weight.permute(2, 3, 0, 1).flip(0, 1))
-        elif isinstance(m, nn.Conv2d):
-            put(params, path + ("kernel",), m.weight.permute(2, 3, 1, 0))
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
-                and m.bias is not None:
-            put(params, path + ("bias",), m.bias)
-    return {"params": params, "batch_stats": stats}
 
 
 def test_bridge_fills_every_entry_once(variables):

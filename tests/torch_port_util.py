@@ -7,6 +7,8 @@ leaf from a numpy seed.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 
@@ -35,6 +37,156 @@ def fill_variables(shapes, seed: int) -> dict:
             v = 0.1 * rs.randn(*shape)
         out.append(np.asarray(v, np.float32))
     return jax.tree_util.tree_unflatten(treedef, out)
+
+
+def to_jax_variables(model) -> dict:
+    """A port model's weights as the JAX package's variable tree (the
+    inverse of `from_jax_variables`)."""
+    from torch import nn
+
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = value.detach().cpu().numpy()
+
+    for name, m in model.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(m, nn.BatchNorm2d):
+            put(params, path + ("scale",), m.weight)
+            put(params, path + ("bias",), m.bias)
+            put(stats, path + ("mean",), m.running_mean)
+            put(stats, path + ("var",), m.running_var)
+        elif isinstance(m, nn.ConvTranspose2d):
+            put(params, path + ("kernel",),
+                m.weight.permute(2, 3, 0, 1).flip(0, 1))
+        elif isinstance(m, nn.Conv2d):
+            put(params, path + ("kernel",), m.weight.permute(2, 3, 1, 0))
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+                and m.bias is not None:
+            put(params, path + ("bias",), m.bias)
+    return {"params": params, "batch_stats": stats}
+
+
+GOLDEN_TRAIN_STEP = os.path.join(os.path.dirname(__file__), "torch_golden",
+                                 "train_step_32.npz")
+# One train step of the JAX package at this size, seeds and learning rate.
+# Batch 8, not 2: at batch 2 the center block's BatchNorm normalises two
+# values per channel (1x1 maps at 32^2), and the train-mode gradient is then
+# chaotic in f32 (a 1e-6 relative change of the input moves parameter
+# updates by up to 4% of the largest); at batch 8 the same change moves them
+# by under 0.2%.
+GOLDEN_BATCH, GOLDEN_SIZE, GOLDEN_SEED, GOLDEN_LR = 8, 32, 0, 1e-3
+# Leaves whose whole update the golden file stores (flax paths under params).
+GOLDEN_LEAVES = (
+    "encoder/conv0/kernel",
+    "encoder/norm0/scale",
+    "encoder/denseblock1/denselayer1/conv2/kernel",
+    "encoder/denseblock3/denselayer24/norm1/bias",
+    "encoder/denseblock4/denselayer16/norm2/scale",
+    "encoder/norm5/bias",
+    "res1/conv1/kernel",
+    "gate2/gate_conv1/kernel",
+    "fuse/kernel",
+    "center/Conv_0/bias",
+    "dec5/mrf_up/ConvTranspose_0/bias",
+    "dec3/spatialAttn/phi/kernel",
+    "dec2/channelAttn/fc1/kernel",
+    "cw/kernel",
+    "expand/Conv_0/kernel",
+    "dec0/BatchNorm_0/scale",
+    "final/kernel",
+    "final/bias",
+)
+
+
+def golden_variables(jax_model) -> dict:
+    """The golden step's starting variables for `jax_model` (a JAX SAUNet
+    at GOLDEN_SIZE): eval_shape of its init, filled from GOLDEN_SEED.
+
+    The shape stream's last kernel (`fuse`) is scaled by 0.05 so that the
+    edge logits stay within about +-8. Filled as the others, they reach
+    +-160: the sigmoid then saturates in f32, pixels land on the edge loss's
+    clip bounds (1e-7, 1 - 1e-7), and whether a pixel's gradient passes
+    the clip turns on the last bit of each framework's sigmoid."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(
+        lambda k: jax_model.init(
+            k, jnp.zeros((1, GOLDEN_SIZE, GOLDEN_SIZE, 3)), train=False),
+        jax.random.PRNGKey(0))
+    variables = fill_variables({"params": shapes["params"],
+                                "batch_stats": shapes["batch_stats"]},
+                               seed=GOLDEN_SEED)
+    fuse = variables["params"]["fuse"]
+    fuse["kernel"] = fuse["kernel"] * np.float32(0.05)
+    return variables
+
+
+def golden_batch() -> dict:
+    """The golden step's batch: numpy image (N, H, W, 3), int32 label
+    (N, H, W) over 4 classes and a {0, 1} edge target (N, H, W, 1)."""
+    rs = np.random.RandomState(GOLDEN_SEED + 1)
+    n, s = GOLDEN_BATCH, GOLDEN_SIZE
+    return {"image": rs.randn(n, s, s, 3).astype(np.float32),
+            "label": rs.randint(0, 4, size=(n, s, s)).astype(np.int32),
+            "edge": (rs.rand(n, s, s, 1) < 0.2).astype(np.float32)}
+
+
+def flat_leaves(tree: dict) -> dict:
+    """{'a/b/c': array} for a nested dict of arrays."""
+    import jax
+
+    return {"/".join(str(getattr(p, "key", p)) for p in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def write_train_step_golden(path: str = GOLDEN_TRAIN_STEP) -> None:
+    """Run one JAX `make_train_step` (SAUNet f32, XLA Canny, radam(1e-3),
+    no augmentation) from `golden_variables` on `golden_batch`, with and
+    without `fix_bn`, and store what tests/test_torch_train_step.py holds
+    the port's step against. Takes a few minutes of XLA compile on one CPU
+    core, so it runs once, by hand:
+
+        JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
+            import torch_port_util as u; u.write_train_step_golden()"
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from saunet_tpu.models import build_unet
+    from saunet_tpu.train.optim import radam
+    from saunet_tpu.train.state import TrainState, make_train_step
+
+    model = build_unet(dtype="float32", stream_impl="xla", edge_kernel="xla")
+    variables = golden_variables(model)
+    batch = {k: jnp.asarray(v) for k, v in golden_batch().items()}
+    tx = radam(GOLDEN_LR)
+    out = {}
+    for prefix, fix_bn in (("", False), ("fix_bn/", True)):
+        state = TrainState(step=jnp.zeros([], jnp.int32),
+                           params=variables["params"],
+                           batch_stats=variables["batch_stats"],
+                           opt_state=tx.init(variables["params"]))
+        step = make_train_step(model, tx, donate=False, fix_bn=fix_bn)
+        new, metrics = step(state, batch)
+        for k in ("loss", "ce", "dice", "edge", "acc", "jaccard"):
+            out[f"{prefix}metric/{k}"] = np.asarray(metrics[k])
+        old_p = flat_leaves(variables["params"])
+        new_p = flat_leaves(new.params)
+        names = sorted(old_p)
+        out[f"{prefix}names"] = np.asarray(names)
+        out[f"{prefix}update_norm"] = np.asarray(
+            [np.linalg.norm(new_p[k] - old_p[k]) for k in names], np.float32)
+        for k in GOLDEN_LEAVES:
+            out[f"{prefix}update/{k}"] = new_p[k] - old_p[k]
+        if not fix_bn:
+            for k, v in flat_leaves(new.batch_stats).items():
+                out[f"batch_stats/{k}"] = v
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **out)
 
 
 @pytest.fixture
