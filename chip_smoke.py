@@ -6,7 +6,8 @@
 Phases, each fatal on failure (exit code 1, no result line):
   1. device: the card's name and power limit, torch and CUDA versions; TF32
      off for every f32 product, so the plain references are full f32.
-  2. build: both CUDA kernels from csrc/ into build/, nvcc runs in parallel.
+  2. build: the four CUDA kernels (canny, dense_block, shape_stream, warp)
+     from csrc/ into build/, the nvcc processes in parallel.
   3. kernels vs plain, on the tensors the main path gives them: Canny on
      the gray images of 64 slices at 224^2 and on (8, 512, 512), exact; the
      dense block on the inputs of DenseNet-121's four blocks for those 64
@@ -20,6 +21,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      logits' argmax agrees on >= 0.95 of pixels, and the kernel route is no
      farther from an f32 plain run than the plain bf16 route is. Slices/s
      of both routes.
+  4b. shape-stream kernel (K4) on the main path's tensors: the packed
+     (64, 224, 224, 67) input that `SAUNet.shape_stream_inputs` makes from
+     the kernel encoder's taps, the kernel against `shape_stream_plain`
+     within max|d| 0.04 and median 0.004; where the random model's stream
+     is chaotic (rounding flips amplified), p99.9|d| within 0.04, the
+     median within 0.004, and the kernel no farther from an f32 stream than
+     the plain bf16 version, with the reason logged. Median times of the
+     kernel, the plain version and the port's cuDNN `model.shape_stream`,
+     and the device time of each of the kernel's three stage launches.
+     Then the route `encoder_apply_fused` -> `shape_stream_inputs` ->
+     `shape_stream_fused` -> `decode(edge_out=)`, counters zeroed just
+     before and read just after: 1 Canny, 4 dense blocks, 1 shape stream;
+     its argmax agrees with `make_infer_step`'s preds on >= 0.95 of pixels;
+     slices/s of the route beside the step's, timed in turns.
   5. serving: 3 synthetic volumes (256x256x10) through
      `saunet_tpu_torch.cli.test_and_pack`: NIfTI outputs in the original
      geometry with labels in {0..3}, timing.json, and the kernels launched.
@@ -153,7 +168,7 @@ def phase_build():
     from saunet_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    paths = build.build(["canny", "dense_block", "warp"])
+    paths = build.build(["canny", "dense_block", "shape_stream", "warp"])
     for name, path in paths.items():
         build.load(name)
         log(f"built {name}: {os.path.relpath(path)}")
@@ -310,24 +325,16 @@ def phase_main_path(model, state, images):
     import torch
 
     from saunet_tpu_torch.models.fused_encoder import fold_encoder
-    from saunet_tpu_torch.ops.cuda import (
-        KERNELS,
-        canny_edges_cuda,
-        dense_block,
-        warp_image_label,
-    )
     from saunet_tpu_torch.train import make_infer_step
 
     step = make_infer_step(model, with_probs=True)
-    for k in KERNELS:
-        k.launches = 0
+    _zero_counts()
     probs, preds, edge = step(state, images)
     torch.cuda.synchronize()
-    launches = {"canny": canny_edges_cuda.launches,
-                "dense_block": dense_block.launches,
-                "warp": warp_image_label.launches}
+    launches = _counts()
     log(f"infer path launches: {launches}")
-    require(launches == {"canny": 1, "dense_block": 4, "warp": 0},
+    require(launches == {"canny": 1, "dense_block": 4, "warp": 0,
+                         "gather": 0, "shape_stream": 0},
             f"main path did not run each kernel as expected: {launches}")
     require(preds.shape == (BATCH, SIZE, SIZE), f"preds {preds.shape}")
     require(bool(torch.isfinite(probs).all()), "probs not finite")
@@ -392,6 +399,154 @@ def phase_main_path(model, state, images):
                       "plain_slices_per_s": BATCH / t_plain,
                       "logits_argmax_agreement": agree,
                       "logits_max_abs_diff": dmax}
+
+
+def _stage_ms(fn, calls: int = 5) -> dict:
+    """Device ms per call of each stage launch of the shape-stream kernel
+    (`stage_kernel<C, ...>`, C = 64, 32, 16), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = ("device_time_total" if hasattr(events[0], "device_time_total")
+           else "cuda_time_total")
+    return {"C=" + e.key.split("stage_kernel<")[1].split(",")[0]:
+            getattr(e, key) / calls / 1e3
+            for e in events if "stage_kernel<" in e.key}
+
+
+def phase_shape_stream(model, state, images):
+    """K4 at full width on the tensors the K4 route gives it, then the
+    route itself against the infer step."""
+    import copy
+
+    import torch
+
+    from saunet_tpu_torch.models.fused_encoder import encoder_apply_fused
+    from saunet_tpu_torch.ops.cuda import (
+        fold_shape_stream_params,
+        shape_stream_fused,
+        shape_stream_plain,
+    )
+    from saunet_tpu_torch.train import make_infer_step
+
+    folded = fold_shape_stream_params(model)
+    x = images.permute(0, 3, 1, 2)
+
+    def nchw_taps():
+        _, *taps = encoder_apply_fused(model.encoder, state.folded, images,
+                                       model.dtype)
+        return [t.permute(0, 3, 1, 2) for t in taps]
+
+    with torch.inference_mode():
+        taps = nchw_taps()
+        packed = model.shape_stream_inputs(taps, x)
+        out = shape_stream_fused(packed, folded)
+        ref = shape_stream_plain(packed, folded)
+        model32 = copy.deepcopy(model)
+        model32.dtype = torch.float32
+        ref32 = model32.shape_stream([t.float() for t in taps],
+                                     x.float())[0].permute(0, 2, 3, 1)
+        del model32
+    torch.cuda.synchronize()
+    require(packed.shape == (BATCH, SIZE, SIZE, 67)
+            and packed.dtype == torch.bfloat16, f"packed {packed.shape}")
+    require(out.shape == ref.shape == (BATCH, SIZE, SIZE, 1),
+            f"shape stream {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "shape stream not finite")
+    err = (out - ref).abs()
+    max_err, med = float(err.max()), float(err.median())
+    q_err = quantile_abs(out - ref)
+    q_kf, q_pf = quantile_abs(out - ref32), quantile_abs(ref - ref32)
+    log(f"shape stream {tuple(packed.shape)}: max|d| {max_err:.6g} median "
+        f"{med:.6g} p99.9 {q_err:.6g}; against an f32 stream p99.9|d| "
+        f"kernel {q_kf:.6g}, plain bf16 {q_pf:.6g}")
+    if max_err > 0.04:
+        # the random model's stream is chaotic at the last bit: a rounding
+        # flip in a 64-channel conv moves a pixel's edge by up to 1
+        log(f"shape stream: max|d| {max_err:.6g} over 0.04 at "
+            f"{int((err > 0.04).sum())} of {err.numel()} pixels; held "
+            f"instead by p99.9 and by the distance from an f32 stream")
+        require(q_err <= 0.04 and q_kf <= 1.1 * q_pf,
+                "shape stream kernel disagrees with its plain version")
+    require(med <= 0.004, "shape stream kernel disagrees (median)")
+
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: shape_stream_fused(packed, folded))
+        plain_ms = cuda_ms(lambda: shape_stream_plain(packed, folded))
+        module_ms = cuda_ms(lambda: model.shape_stream(taps, x))
+        inputs_ms = cuda_ms(lambda: model.shape_stream_inputs(taps, x))
+        stage_ms = _stage_ms(lambda: shape_stream_fused(packed, folded))
+    # one multiply-add per weight per pixel, two FLOP each, on the bf16
+    # tensor-core rate: both 3x3 convs of every res block, d_i, the gate's
+    # convs with its cue row, fuse
+    px = BATCH * SIZE * SIZE
+    macs = sum(v.numel() for k, v in folded.items()
+               if k.split("/")[-1] in ("r_w1", "r_w2", "d_w", "g_w1_ss",
+                                       "g_w1_cue", "g_w2", "g_wg", "fuse_w"))
+    nbytes = (packed.numel() * packed.element_size()
+              + out.numel() * out.element_size()
+              + sum(v.numel() * v.element_size() for v in folded.values()))
+    bound_ms, bound_by = bound(nbytes, 2 * macs * px, BF16_OPS_PER_S)
+    log(f"shape stream: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+        f"module stream {module_ms:.4f} ms, shape_stream_inputs "
+        f"{inputs_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{macs} multiply-adds per pixel); device ms per stage launch "
+        f"{stage_ms}")
+
+    step = make_infer_step(model)
+
+    def k4_route():
+        with torch.inference_mode():
+            taps = nchw_taps()
+            edge = shape_stream_fused(model.shape_stream_inputs(taps, x),
+                                      folded)
+            return model.decode(taps, x, edge_out=edge.permute(0, 3, 1, 2))[0]
+
+    _zero_counts()
+    seg = k4_route()
+    torch.cuda.synchronize()
+    launches = _counts()
+    log(f"K4 route launches: {launches}")
+    require(launches == {"canny": 1, "dense_block": 4, "warp": 0,
+                         "gather": 0, "shape_stream": 1},
+            f"K4 route did not run each kernel as expected: {launches}")
+    _, preds, _ = step(state, images)
+    agree = float((seg.argmax(1) == preds).float().mean())
+    log(f"K4 route vs infer step: argmax agreement {agree:.6f}")
+    require(agree >= 0.95, "K4 route disagrees with the infer step")
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    turns = {"step": [], "route": []}
+    for name in ("step", "route", "route", "step") * 3:
+        turns[name].append(host_ms(
+            (lambda: step(state, images)) if name == "step" else k4_route))
+    t_step, t_route = (statistics.median(turns["step"]),
+                       statistics.median(turns["route"]))
+    log(f"K4 route, {BATCH} slices at {SIZE}^2 bf16: {t_route:.3f} ms "
+        f"({BATCH / t_route * 1e3:.2f} slices/s); infer step in the same "
+        f"turns {t_step:.3f} ms ({BATCH / t_step * 1e3:.2f} slices/s)")
+    return launches, {"max_abs_err": max_err, "median_abs_err": med,
+                      "p999_abs_err": q_err, "ms": ms, "plain_ms": plain_ms,
+                      "module_stream_ms": module_ms, "stage_ms": stage_ms,
+                      "inputs_ms": inputs_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "route_ms": t_route,
+                      "route_slices_per_s": BATCH / t_route * 1e3,
+                      "step_ms": t_step,
+                      "step_slices_per_s": BATCH / t_step * 1e3,
+                      "route_argmax_agreement": agree}
 
 
 def phase_serving(model, device):
@@ -520,12 +675,14 @@ def _counts():
         canny_edges_cuda,
         dense_block,
         gather_image,
+        shape_stream_fused,
         warp_image_label,
     )
     return {"canny": canny_edges_cuda.launches,
             "dense_block": dense_block.launches,
             "warp": warp_image_label.launches,
-            "gather": gather_image.launches}
+            "gather": gather_image.launches,
+            "shape_stream": shape_stream_fused.launches}
 
 
 def _zero_counts():
@@ -608,7 +765,7 @@ def phase_train_step(device):
     launches = _counts()
     log(f"train step launches: {launches}")
     require(launches == {"canny": 1, "dense_block": 0, "warp": 1,
-                         "gather": 0},
+                         "gather": 0, "shape_stream": 0},
             f"train step did not run each kernel as expected: {launches}")
     parts = {k: float(metrics[k]) for k in ("loss", "ce", "dice", "edge")}
     log(f"train step loss parts: {parts}, acc {float(metrics['acc']):.4f}")
@@ -755,7 +912,7 @@ def phase_train_cli(device):
         require(len(ious) == 3, "per-class IoU not printed")
         require(launches == {"canny": steps + val_batches,
                              "dense_block": 4 * val_batches, "warp": steps,
-                             "gather": 0},
+                             "gather": 0, "shape_stream": 0},
                 f"train CLI did not run each kernel as expected: "
                 f"{launches}")
         run = parse_args(argv).ckpt
@@ -811,6 +968,7 @@ def main() -> int:
     canny = phase_canny(images, device)
     dense = phase_dense_block(model, state.folded, images)
     infer_launches, rates = phase_main_path(model, state, images)
+    k4_launches, k4 = phase_shape_stream(model, state, images)
     ms_per_slice = phase_serving(model, device)
     del model, state, images
     torch.cuda.empty_cache()
@@ -820,8 +978,8 @@ def main() -> int:
     cli_launches, train_cli = phase_train_cli(device)
     require("jax" not in sys.modules, "the port imported jax")
 
-    by_path = {"infer": infer_launches, "train_step": train_launches,
-               "train_cli": cli_launches}
+    by_path = {"infer": infer_launches, "k4_route": k4_launches,
+               "train_step": train_launches, "train_cli": cli_launches}
 
     def launches(name):
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
@@ -837,6 +995,13 @@ def main() -> int:
              {"max_err_over_tol": dense["max_err_over_tol"],
               "shape": f"4 DenseNet-121 blocks, {BATCH} slices at "
                        f"{SIZE}^2"}),
+            ("shape_stream", "shape_stream.cu",
+             "saunet_tpu/ops/pallas/shape_stream.py:290", k4,
+             {"shape": [BATCH, SIZE, SIZE, 67],
+              "median_abs_err": k4["median_abs_err"],
+              "p999_abs_err": k4["p999_abs_err"],
+              "module_stream_ms": k4["module_stream_ms"],
+              "stage_ms": k4["stage_ms"]}),
             ("warp", "warp.cu", "tools/exp_gather.py:166", warp,
              {"shape": [BATCH, SIZE, SIZE], "gather": warp["gather"]})):
         total, counts = launches(name)
@@ -854,8 +1019,12 @@ def main() -> int:
         f"{ms_per_slice:.4f} ms/slice; train {train['slices_per_s']:.3f} "
         f"slices/s; total {time.perf_counter() - t0:.1f} s")
     log(card)
-    log(json.dumps({"infer": rates, "serving_ms_per_slice": ms_per_slice,
-                    "train": train, "train_cli": train_cli}))
+    log(json.dumps({"infer": rates, "k4_route": {
+        k: k4[k] for k in ("route_ms", "route_slices_per_s", "step_ms",
+                           "step_slices_per_s", "route_argmax_agreement",
+                           "inputs_ms")},
+        "serving_ms_per_slice": ms_per_slice, "train": train,
+        "train_cli": train_cli}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

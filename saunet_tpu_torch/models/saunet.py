@@ -11,7 +11,7 @@ computes that math once, and its tests hold it against both layouts.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -111,6 +111,20 @@ class SAUNet(nn.Module):
         ss, g3 = self.gate3(ss, resize_bilinear(self.c5(conv5), hw))
         return torch.sigmoid(self.fuse(ss).float()), (g1, g2, g3)
 
+    def shape_stream_inputs(self, taps: Sequence[torch.Tensor],
+                            x: torch.Tensor) -> torch.Tensor:
+        """The shape-stream kernel's input: the resized 64-channel d0(f2)
+        and the resized 1-channel c3(f3), c4(f4), c5(f5), packed into one
+        (N, H, W, 67) NHWC tensor in the taps' dtype, channels contiguous
+        per pixel (ops/cuda/shape_stream.py reads it so)."""
+        conv2, conv3, conv4, conv5 = taps
+        hw = x.shape[2:]
+        parts = [resize_bilinear(self.d0(conv2), hw),
+                 resize_bilinear(self.c3(conv3), hw),
+                 resize_bilinear(self.c4(conv4), hw),
+                 resize_bilinear(self.c5(conv5), hw)]
+        return torch.cat(parts, dim=1).permute(0, 2, 3, 1).contiguous()
+
     def _dualatt_decoder(self, taps):
         """center .. dec2. Returns (dec2, (att2, att3, att4, att5))."""
         conv2, conv3, conv4, conv5 = taps
@@ -132,14 +146,23 @@ class SAUNet(nn.Module):
         return out + list(gates)
 
     def decode(self, taps: Sequence[torch.Tensor], x: torch.Tensor,
-               return_att: bool = False):
+               return_att: bool = False,
+               edge_out: Optional[torch.Tensor] = None):
         """Everything after the encoder: shape stream, Canny edge fusion,
         dual-attention decoder, head. `taps` = (f2, f3, f4, f5) NCHW;
         `x` is the NCHW network input, cast to the model dtype BEFORE the
-        gray image is taken from it."""
+        gray image is taken from it. `edge_out`, an (N, 1, H, W) edge map
+        (NCHW, as `shape_stream` returns it; the shape-stream kernel's
+        (N, H, W, 1) output permuted), replaces the shape stream; it has no
+        gate maps, so it cannot go with `return_att`."""
+        if edge_out is not None and return_att:
+            raise ValueError("return_att needs the shape stream's gate "
+                             "maps; do not pass edge_out")
         dt = self.dtype
         x = x.to(dt)
-        edge_out, gates = self.shape_stream(taps, x)
+        gates = ()
+        if edge_out is None:
+            edge_out, gates = self.shape_stream(taps, x)
 
         gray = image_to_gray255(x.permute(0, 2, 3, 1))
         canny = self._canny(gray).to(dt).permute(0, 3, 1, 2)

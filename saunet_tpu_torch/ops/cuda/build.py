@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # Per-kernel extra flags. Canny and the warp keep their plain versions'
 # order of operations exactly: no fused multiply-add contraction.
 EXTRA_FLAGS: Dict[str, list] = {"canny": ["-fmad=false"], "dense_block": [],
-                                "warp": ["-fmad=false"]}
+                                "shape_stream": [], "warp": ["-fmad=false"]}
 
 
 def _nvcc() -> str:
@@ -107,6 +107,12 @@ def load(name: str) -> ctypes.CDLL:
         lib.dense_block_growth.restype = i
         lib.dense_block_hidden.argtypes = []
         lib.dense_block_hidden.restype = i
+    elif name == "shape_stream":
+        lib.shape_stream_forward.argtypes = [p, p, p, p,
+                                             ctypes.POINTER(p), i, i, i, p]
+        lib.shape_stream_forward.restype = i
+        lib.shape_stream_operands.argtypes = []
+        lib.shape_stream_operands.restype = i
     elif name == "warp":
         lib.gather_image_forward.argtypes = [p, p, p, i, i, i, i, p]
         lib.gather_image_forward.restype = i
