@@ -12,7 +12,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      the gray images of 64 slices at 224^2 and on (8, 512, 512), exact; the
      dense block on the inputs of DenseNet-121's four blocks for those 64
      slices, bf16, within 0.05*max|ref| and a median under a tenth of that.
-     Median times over 20 runs (CUDA events).
+     Median times over 20 runs (CUDA events); each block's time beside its
+     own bound and its device time per launch kind (torch.profiler).
   4. main path: full-width bf16 SAUNet with seeded random weights and BN
      statistics calibrated on synthetic slices, `make_infer_step` on 64
      slices at 224^2. The launch counters are zeroed just before and read
@@ -42,7 +43,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      224^2: `gather_image` in its three modes, exact; `warp_image_label` on
      coordinates from the port's own augmentation draws, image within
      1e-6*max|ref|, labels exact. Median times of the kernels, their plain
-     versions and the library calls (torch.gather, grid_sample).
+     versions and the library calls (torch.gather, grid_sample), and the
+     device times (torch.profiler) of the kernels, grid_sample x2 and
+     torch.gather's own kernel.
   7. train step: full-width bf16 SAUNet, 64 slices at 224^2,
      `make_augment_fn` + `make_train_step` with radam(1e-4). Counters zeroed
      just before one step and read just after: 1 warp, 1 Canny, no dense
@@ -173,6 +176,15 @@ def phase_build():
         build.load(name)
         log(f"built {name}: {os.path.relpath(path)}")
     log(f"build seconds: {time.perf_counter() - t0:.3f}")
+    # registers, shared memory and spills of every kernel, from ptxas
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
+        for name in paths:
+            f.write(f"== {name}\n" + "\n".join(build.ptxas_info(name))
+                    + "\n")
+    for name in ("dense_block", "warp"):
+        for line in build.ptxas_info(name):
+            log(f"ptxas {name}: {line}")
 
 
 def phase_canny(images, device):
@@ -233,6 +245,7 @@ def phase_dense_block(model, folded, images):
                             capture)
     total_ms = total_plain = worst = worst_err = 0.0
     nbytes = ops = 0.0
+    blocks = []
     for x, f in zip(inputs, folded):
         n, hw, _, c0 = x.shape
         num_layers, _, hidden = f["w1"].shape
@@ -240,11 +253,14 @@ def phase_dense_block(model, folded, images):
         # input read once, output written once (bf16), operands once; two
         # products per layer: 1x1 (c_in -> hidden) and 3x3 (hidden -> growth)
         px = n * hw * hw
-        nbytes += 2 * px * (2 * c0 + growth * num_layers) + sum(
-            v.numel() * v.element_size() for v in f.values())
-        ops += sum(2 * px * ((c0 + growth * l) * hidden
-                             + 9 * hidden * growth)
-                   for l in range(num_layers))
+        b_bytes = 2 * px * (2 * c0 + growth * num_layers) + sum(
+            f[k].numel() * f[k].element_size()
+            for k in ("a1", "b1", "w1t", "b2", "w2t"))
+        b_ops = sum(2 * px * ((c0 + growth * l) * hidden
+                              + 9 * hidden * growth)
+                    for l in range(num_layers))
+        nbytes += b_bytes
+        ops += b_ops
         with torch.inference_mode():
             out = dense_block(x, f)
             ref = dense_block_plain(x, f)
@@ -264,16 +280,26 @@ def phase_dense_block(model, folded, images):
         with torch.inference_mode():
             ms = cuda_ms(lambda: dense_block(x, f))
             plain_ms = cuda_ms(lambda: dense_block_plain(x, f))
+            split = device_ms_by_kernel(lambda: dense_block(x, f))
+        b_bound, b_by = bound(b_bytes, b_ops, BF16_OPS_PER_S)
         log(f"dense block {tuple(x.shape)} x {num_layers}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_bound:.4f} ms ({b_by}), {ms / b_bound:.2f}x bound; device "
+            f"ms per call by launch kind {split}")
+        blocks.append({"shape": list(x.shape), "layers": num_layers,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_bound,
+                       "bound_by": b_by, "device_ms": split,
+                       "max_abs_err": max_err, "median_abs_err": med})
         total_ms += ms
         total_plain += plain_ms
         worst = max(worst, max_err / tol)
         worst_err = max(worst_err, max_err)
     bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f"dense blocks: kernel {total_ms:.4f} ms in all, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": worst_err, "max_err_over_tol": worst,
             "ms": total_ms, "plain_ms": total_plain, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "blocks": blocks}
 
 
 def build_model(device):
@@ -401,10 +427,11 @@ def phase_main_path(model, state, images):
                       "logits_max_abs_diff": dmax}
 
 
-def _stage_ms(fn, calls: int = 5) -> dict:
-    """Device ms per call of each stage launch of the shape-stream kernel
-    (`stage_kernel<C, ...>`, C = 64, 32, 16), from torch.profiler."""
+def device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device ms per call of `fn` for each CUDA kernel (and copy) it
+    launches, by short kernel name, from torch.profiler."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -415,9 +442,26 @@ def _stage_ms(fn, calls: int = 5) -> dict:
     events = prof.key_averages()
     key = ("device_time_total" if hasattr(events[0], "device_time_total")
            else "cuda_time_total")
-    return {"C=" + e.key.split("stage_kernel<")[1].split(",")[0]:
-            getattr(e, key) / calls / 1e3
-            for e in events if "stage_kernel<" in e.key}
+    out = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        base = (e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                .strip().removeprefix("void "))
+        head, _, tmpl = base.partition("<")
+        if len(tmpl) > 24:
+            tmpl = tmpl[:20] + "...>"
+        name = head.split("::")[-1] + ("<" + tmpl if tmpl else "")
+        out[name] = out.get(name, 0.0) + getattr(e, key) / calls / 1e3
+    return out
+
+
+def _stage_ms(fn, calls: int = 5) -> dict:
+    """Device ms per call of each stage launch of the shape-stream kernel
+    (`stage_kernel<C, ...>`, C = 64, 32, 16), from torch.profiler."""
+    return {"C=" + k.split("stage_kernel<")[1].split(",")[0]: v
+            for k, v in device_ms_by_kernel(fn, calls).items()
+            if "stage_kernel<" in k}
 
 
 def phase_shape_stream(model, state, images):
@@ -643,11 +687,19 @@ def phase_warp(device):
     library_ms = cuda_ms(library)
     bound_ms, bound_by = bound(24 * px, WARP_OPS_PER_PIXEL * px,
                                F32_OPS_PER_S)
+    # device time alone (torch.profiler): a call of a few tens of us is
+    # shorter than its host work, which the event pair above also holds
+    dev_ms = sum(device_ms_by_kernel(
+        lambda: warp_image_label(img, lab, sy, sx), 20).values())
+    library_dev = device_ms_by_kernel(library, 20)
     log(f"warp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"device ms: kernel {dev_ms:.5f}, grid_sample x2 "
+        f"{sum(library_dev.values()):.5f} {library_dev}")
     result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "gather": {}}
+              "bound_by": bound_by, "device_ms": dev_ms,
+              "library_device_ms": sum(library_dev.values()), "gather": {}}
 
     for mode, lim in (("lane", SIZE), ("sublane", SIZE),
                       ("flat", SIZE * SIZE)):
@@ -660,13 +712,26 @@ def phase_warp(device):
         g_ms = cuda_ms(lambda: gather_image(img, idx, mode))
         g_plain = cuda_ms(lambda: gather_image_plain(img, idx, mode))
         g_bound, g_by = bound(12 * px, 0, F32_OPS_PER_S)
+        # device time of the kernel, and of torch.gather's own kernel on an
+        # int64 index made beforehand (the plain version's cast excluded)
+        g_dev = sum(device_ms_by_kernel(
+            lambda: gather_image(img, idx, mode), 20).values())
+        idx64 = idx.long()
+        view, dim = ((img.reshape(BATCH, -1), 1) if mode == "flat" else
+                     (img, 2 if mode == "lane" else 1))
+        i64 = idx64.reshape(view.shape)
+        t_dev = sum(device_ms_by_kernel(
+            lambda: torch.gather(view, dim, i64), 20).values())
         log(f"gather {mode}: exact; kernel {g_ms:.4f} ms, torch.gather "
-            f"{g_plain:.4f} ms, bound {g_bound:.4f} ms ({g_by})")
+            f"{g_plain:.4f} ms, bound {g_bound:.4f} ms ({g_by}); device ms: "
+            f"kernel {g_dev:.5f}, torch.gather {t_dev:.5f}")
         # the plain version is the one torch.gather call: it is also the
         # library yardstick
         result["gather"][mode] = {"max_abs_err": 0.0, "ms": g_ms,
                                   "plain_ms": g_plain, "library_ms": g_plain,
-                                  "bound_ms": g_bound, "bound_by": g_by}
+                                  "bound_ms": g_bound, "bound_by": g_by,
+                                  "device_ms": g_dev,
+                                  "library_device_ms": t_dev}
     return result
 
 
@@ -994,7 +1059,7 @@ def main() -> int:
              "saunet_tpu/ops/pallas/dense_block.py:256", dense,
              {"max_err_over_tol": dense["max_err_over_tol"],
               "shape": f"4 DenseNet-121 blocks, {BATCH} slices at "
-                       f"{SIZE}^2"}),
+                       f"{SIZE}^2", "blocks": dense["blocks"]}),
             ("shape_stream", "shape_stream.cu",
              "saunet_tpu/ops/pallas/shape_stream.py:290", k4,
              {"shape": [BATCH, SIZE, SIZE, 67],
@@ -1003,7 +1068,9 @@ def main() -> int:
               "module_stream_ms": k4["module_stream_ms"],
               "stage_ms": k4["stage_ms"]}),
             ("warp", "warp.cu", "tools/exp_gather.py:166", warp,
-             {"shape": [BATCH, SIZE, SIZE], "gather": warp["gather"]})):
+             {"shape": [BATCH, SIZE, SIZE], "device_ms": warp["device_ms"],
+              "library_device_ms": warp["library_device_ms"],
+              "gather": warp["gather"]})):
         total, counts = launches(name)
         require(total > 0, f"{name} was not launched on the main paths")
         kernels.append({

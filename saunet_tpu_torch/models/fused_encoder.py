@@ -15,7 +15,11 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.dense_block import dense_block, fold_dense_block_params
+from ..ops.cuda.dense_block import (
+    dense_block,
+    fold_dense_block_params,
+    kernel_layout,
+)
 from ..utils.config import BN_EPS
 
 
@@ -29,8 +33,10 @@ def _bn_affine(x: torch.Tensor, bn) -> torch.Tensor:
 
 
 def fold_encoder(encoder, dtype: torch.dtype) -> List[dict]:
-    """Kernel operands for each dense block of `encoder`, in `dtype`."""
-    return [fold_dense_block_params(b, dtype=dtype) for b in encoder.blocks()]
+    """Kernel operands for each dense block of `encoder`, in `dtype`, with
+    the kernel's layout of W1 and W2 beside the JAX one."""
+    return [kernel_layout(fold_dense_block_params(b, dtype=dtype))
+            for b in encoder.blocks()]
 
 
 def encoder_apply_fused(encoder, folded: List[dict], x: torch.Tensor,

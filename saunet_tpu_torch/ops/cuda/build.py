@@ -7,7 +7,11 @@ builds anew and a stale library is never loaded. Nothing here runs at
 import time: this module imports on machines without `nvcc` or a GPU.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
-         -Xcompiler -fPIC [-fmad=false] -o build/lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v [-fmad=false] \
+         -o build/lib<name>-<hash>.so <name>.cu
+
+What ptxas prints for each kernel (registers, static shared memory, spills)
+is kept beside the library as `build/lib<name>-<hash>.log`.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 # Per-kernel extra flags. Canny and the warp keep their plain versions'
 # order of operations exactly: no fused multiply-add contraction.
 EXTRA_FLAGS: Dict[str, list] = {"canny": ["-fmad=false"], "dense_block": [],
@@ -81,10 +86,23 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             errors.append(f"nvcc {name}.cu failed:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            library_path(name).with_suffix(".log").write_text(log)
             os.replace(tmp, library_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
     return {n: library_path(n) for n in names}
+
+
+def ptxas_info(name: str) -> list:
+    """ptxas's lines for each kernel of the built library `name`: the
+    function, its registers and shared memory, its stack and spills."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    return [line.strip() for line in log.read_text().splitlines()
+            if "ptxas info" in line and ("Compiling entry" in line
+                                         or "Used" in line)
+            or "spill" in line]
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +118,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.canny_iters.argtypes = []
         lib.canny_iters.restype = i
     elif name == "dense_block":
-        lib.dense_block_forward.argtypes = [p, p, p, p, p, p, p, p,
+        lib.dense_block_forward.argtypes = [p, p, p, p, p, p, p,
                                             i, i, i, i, i, p]
         lib.dense_block_forward.restype = i
         lib.dense_block_growth.argtypes = []

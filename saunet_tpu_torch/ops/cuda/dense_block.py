@@ -2,7 +2,8 @@
 
 Counterpart of saunet_tpu/ops/pallas/dense_block.py. `fold_dense_block_params`
 turns one `DenseBlock`'s BN running statistics and conv weights into the
-kernel's operands, once per model; `dense_block` runs the block through the
+block's operands, once per model, and `kernel_layout` adds the kernel's
+layout of W1 and W2; `dense_block` runs the block through the
 CUDA kernel for a CUDA tensor (or raises), and through `dense_block_plain`
 for a tensor on the CPU. Layouts are the JAX package's: NHWC in and out.
 
@@ -102,12 +103,31 @@ def dense_block_plain(x: torch.Tensor,
     return out.to(torch.bfloat16) if bf16 else out
 
 
+def kernel_layout(folded: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """`folded` with W1 and W2 also laid out for the kernel, K contiguous
+    for each output channel (what ldmatrix reads as the B operand of mma):
+
+      w1t: (L, HIDDEN, Cmax)        w1t[l, o, c] = w1[l, c, o]
+      w2t: (L, 9, GROWTH, HIDDEN)   w2t[l, tap, o, k] = w2[l, k, tap*32 + o]
+
+    Called once per fold (`models.fused_encoder.fold_encoder`); the kernel
+    reads these two in place of w1 and w2, and `fold_dense_block_params`
+    keeps the JAX package's layout."""
+    w1, w2 = folded["w1"], folded["w2"]
+    num_layers = w1.shape[0]
+    return {**folded, "w1t": w1.transpose(1, 2).contiguous(),
+            "w2t": w2.view(num_layers, HIDDEN, 9, GROWTH).permute(0, 2, 3, 1)
+            .contiguous()}
+
+
 def dense_block(x: torch.Tensor,
                 folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     """x: (N, H, W, C0) NHWC -> (N, H, W, C0 + L*GROWTH).
 
     CPU tensors take `dense_block_plain`. CUDA tensors launch the kernel,
-    which takes bf16 input and bf16-folded operands, or raise."""
+    which takes bf16 input and bf16-folded operands passed through
+    `kernel_layout`, or raise."""
     if x.device.type == "cpu":
         return dense_block_plain(x, folded)
     if not x.is_cuda:
@@ -118,11 +138,15 @@ def dense_block(x: torch.Tensor,
     n, h, w, c0 = x.shape
     num_layers, _, cmax = folded["a1"].shape
     shapes = {"a1": (num_layers, 1, cmax), "b1": (num_layers, 1, cmax),
-              "w1": (num_layers, cmax, HIDDEN), "b2": (num_layers, 1, HIDDEN),
-              "w2": (num_layers, HIDDEN, 9 * GROWTH)}
+              "w1t": (num_layers, HIDDEN, cmax),
+              "b2": (num_layers, 1, HIDDEN),
+              "w2t": (num_layers, 9, GROWTH, HIDDEN)}
     if c0 % GROWTH or cmax != c0 + num_layers * GROWTH:
         raise ValueError(f"dense block kernel: C0={c0} must be a multiple "
                          f"of {GROWTH} and match the folded width {cmax}")
+    if "w1t" not in folded:
+        raise ValueError("dense block kernel: the operands need the "
+                         "kernel's layout; fold with kernel_layout")
     for name, shape in shapes.items():
         v = folded[name]
         want = torch.float32 if name == "b2" else torch.bfloat16
@@ -140,16 +164,13 @@ def dense_block(x: torch.Tensor,
                                                                 HIDDEN):
         raise RuntimeError("dense block kernel built for another width")
     out = torch.empty((n, h, w, cmax), dtype=torch.bfloat16, device=x.device)
-    scratch = torch.empty((n * h * w, HIDDEN), dtype=torch.bfloat16,
-                          device=x.device)
     if n * h * w:
         with torch.cuda.device(x.device):
             build.check(lib.dense_block_forward(
-                x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                folded["a1"].data_ptr(), folded["b1"].data_ptr(),
-                folded["w1"].data_ptr(), folded["b2"].data_ptr(),
-                folded["w2"].data_ptr(), n, h, w, c0, num_layers,
-                torch.cuda.current_stream().cuda_stream),
+                x.data_ptr(), out.data_ptr(), folded["a1"].data_ptr(),
+                folded["b1"].data_ptr(), folded["w1t"].data_ptr(),
+                folded["b2"].data_ptr(), folded["w2t"].data_ptr(), n, h, w,
+                c0, num_layers, torch.cuda.current_stream().cuda_stream),
                 "dense block kernel")
         dense_block.launches += 1
     return out

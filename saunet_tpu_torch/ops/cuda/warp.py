@@ -7,8 +7,8 @@ saunet_tpu/data/augment.py::_warp_image_label_packed. Each wrapper takes its
 plain version for a tensor on the CPU, launches the kernel for a CUDA
 tensor, or raises, and counts its launches.
 
-`warp_image_label` computes the warp directly, one output pixel per thread,
-instead of the TPU's packed single gather; the numerics are the
+`warp_image_label` computes the warp directly, four output pixels a
+thread, instead of the TPU's packed single gather; the numerics are the
 reference's (bf16 taps, f32 combine, zero fill; see csrc/warp.cu).
 """
 from __future__ import annotations
@@ -39,10 +39,11 @@ def gather_image_plain(img: torch.Tensor, idx: torch.Tensor,
 
 
 def _check_cuda(what: str, **tensors) -> Tuple[int, int, int]:
-    shape = None
+    shape = device = None
     for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{what}: no kernel for device {t.device}")
+        if not t.is_cuda or device not in (None, t.device):
+            raise ValueError(f"{what}: no kernel for {name} on {t.device}")
+        device = t.device
         if t.dim() != 3 or (shape is not None and tuple(t.shape) != shape):
             raise ValueError(f"{what}: {name} must be (N, H, W) like the "
                              f"others, got {tuple(t.shape)}")

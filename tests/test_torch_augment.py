@@ -187,15 +187,22 @@ def test_gather_plain_matches_numpy(mode):
                           "diagonal")
 
 
-def test_warp_and_gather_kernels_match_plain_on_card(cuda_device):  # noqa: F811
-    img, lab, sy, sx = _warp_inputs(7, n=4, h=64, w=48)
+@pytest.mark.parametrize("n, h, w", [(4, 64, 48), (3, 37, 45),
+                                     (2, 224, 224)],
+                         ids=["64x48", "37x45", "224x224"])
+def test_warp_and_gather_kernels_match_plain_on_card(cuda_device, n, h,
+                                                     w):  # noqa: F811
+    """Exact on the card: widths that are a multiple of 4 take the kernels'
+    16-byte form, 37x45 their pixel-by-pixel form (rows and planes that end
+    inside a thread's 4 pixels)."""
+    img, lab, sy, sx = _warp_inputs(7, n=n, h=h, w=w)
     t = [torch.from_numpy(a).to(cuda_device) for a in (img, lab, sy, sx)]
     out_i, out_l = warp.warp_image_label(*t)
     ref_i, ref_l = warp.warp_image_label_plain(*t)
     torch.cuda.synchronize()
     assert torch.equal(out_i, ref_i)
     assert torch.equal(out_l, ref_l)
-    for mode, lim in (("lane", 48), ("sublane", 64), ("flat", 64 * 48)):
+    for mode, lim in (("lane", w), ("sublane", h), ("flat", h * w)):
         idx = torch.randint(0, lim, t[0].shape, dtype=torch.int32,
                             device=cuda_device)
         assert torch.equal(warp.gather_image(t[0], idx, mode),

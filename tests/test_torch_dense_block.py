@@ -26,6 +26,7 @@ from saunet_tpu_torch.ops.cuda import (
     dense_block_plain,
     fold_dense_block_params,
 )
+from saunet_tpu_torch.ops.cuda.dense_block import kernel_layout
 from torch_port_util import cuda_device, fill_variables  # noqa: F401
 
 NUM_LAYERS, C0, HW, EPS = 3, 64, 16, 1e-5
@@ -116,6 +117,24 @@ def test_wrapper_runs_plain_version_on_cpu(block):
                                atol=0)
 
 
+def test_kernel_layout(block):
+    """The kernel's W1 and W2 layouts hold the folded weights, K contiguous
+    per output channel, beside the JAX layout, which stays as it was."""
+    _, port, _ = block
+    folded = fold_dense_block_params(port)
+    laid = kernel_layout(folded)
+    assert set(laid) == set(folded) | {"w1t", "w2t"}
+    for k, v in folded.items():
+        assert laid[k] is v, k
+    w1, w2, w1t, w2t = folded["w1"], folded["w2"], laid["w1t"], laid["w2t"]
+    assert w1t.shape == (NUM_LAYERS, 128, w1.shape[1]) and w1t.is_contiguous()
+    assert w2t.shape == (NUM_LAYERS, 9, 32, 128) and w2t.is_contiguous()
+    assert torch.equal(w1t, w1.transpose(1, 2))
+    for tap in range(9):
+        assert torch.equal(w2t[:, tap], w2[:, :, tap * 32:(tap + 1) * 32]
+                           .transpose(1, 2)), tap
+
+
 def test_fused_encoder_matches_chain_encoder():
     """encoder_apply_fused (folded dense blocks, BN as an affine) against
     the port's own chain DenseNetEncoder in f32, on a cut-down encoder."""
@@ -135,15 +154,22 @@ def test_fused_encoder_matches_chain_encoder():
                                    atol=1e-5 * float(r.abs().max()))
 
 
-def test_dense_block_kernel_matches_plain_on_card(cuda_device):  # noqa: F811
-    """The CUDA kernel against its plain bf16-mode version on the card,
-    with a spatial size that leaves ragged tiles and a pixel count that
-    is not a multiple of the bottleneck tile."""
+@pytest.mark.parametrize("n, h, w, c0, num_layers", [
+    (3, 21, 19, C0, NUM_LAYERS),  # ragged tiles, odd pixel count
+    (2, 14, 14, 512, 3),          # block 4's width: one tile an image
+    (3, 112, 112, 64, 2),         # block 1's size: more tiles than SMs
+], ids=["ragged-21x19", "block4-14x14", "block1-112x112"])
+def test_dense_block_kernel_matches_plain_on_card(cuda_device, n, h, w, c0,
+                                                  num_layers):  # noqa: F811
+    """The CUDA kernel against its plain bf16-mode version on the card:
+    a spatial size that leaves ragged tiles, block 4's width at its 14x14
+    (one tile an image, fewer tiles than SMs), and block 1's 112x112 (more
+    tiles than SMs, so each block of the persistent grid takes several)."""
     gen = torch.Generator().manual_seed(0)
-    port = init_random_(DenseBlock(C0, NUM_LAYERS), gen).to(cuda_device)
-    folded = fold_dense_block_params(port.eval())
-    x = torch.randn(3, 21, 19, C0, generator=gen).to(cuda_device,
-                                                      torch.bfloat16)
+    port = init_random_(DenseBlock(c0, num_layers), gen).to(cuda_device)
+    folded = kernel_layout(fold_dense_block_params(port.eval()))
+    x = torch.randn(n, h, w, c0, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
     before = dense_block.launches
     out = dense_block(x, folded)
     ref = dense_block_plain(x, folded)
