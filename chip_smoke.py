@@ -7,9 +7,11 @@ Phases, each fatal on failure (exit code 1, no result line):
   1. device: the card's name and power limit, torch and CUDA versions; TF32
      off for every f32 product, so the plain references are full f32.
   2. build: the four CUDA kernels (canny, dense_block, shape_stream, warp)
-     from csrc/ into build/, the nvcc processes in parallel.
+     from csrc/ into build/, the nvcc processes in parallel; ptxas's
+     registers, shared memory and spills of every kernel.
   3. kernels vs plain, on the tensors the main path gives them: Canny on
-     the gray images of 64 slices at 224^2 and on (8, 512, 512), exact; the
+     the gray images of 64 slices at 224^2 and on (8, 512, 512), exact (0
+     flips), with its device time per call at both sizes; the
      dense block on the inputs of DenseNet-121's four blocks for those 64
      slices, bf16, within 0.05*max|ref| and a median under a tenth of that.
      Median times over 20 runs (CUDA events); each block's time beside its
@@ -39,6 +41,9 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. serving: 3 synthetic volumes (256x256x10) through
      `saunet_tpu_torch.cli.test_and_pack`: NIfTI outputs in the original
      geometry with labels in {0..3}, timing.json, and the kernels launched.
+     Then `make_infer_step` serves 8 slices at 224^2 from an f32 copy of
+     the model: the plain forward, 0 dense-block launches, preds agreeing
+     with the model's own forward on >= 0.99 of pixels.
   6. warp kernel (K5) vs plain on the train path's tensors, 64 slices at
      224^2: `gather_image` in its three modes, exact; `warp_image_label` on
      coordinates from the port's own augmentation draws, image within
@@ -86,8 +91,9 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 # Canny's work per pixel, counted from csrc/canny.cu: Sobel 2x17, L1
 # magnitude 3, direction 8, non-maximum suppression 4, thresholds 2,
-# 8 hysteresis rounds of 9, scale 1
-CANNY_OPS_PER_PIXEL = 124
+# 8 hysteresis rounds of 14 operations on a 32-pixel word (4 in all),
+# scale 1
+CANNY_OPS_PER_PIXEL = 56
 # the warp's per output pixel: floors and fractions 4, bounds 4, 4 bf16
 # roundings, bilinear combine 11, label pick 3
 WARP_OPS_PER_PIXEL = 30
@@ -182,7 +188,7 @@ def phase_build():
         for name in paths:
             f.write(f"== {name}\n" + "\n".join(build.ptxas_info(name))
                     + "\n")
-    for name in ("dense_block", "warp"):
+    for name in paths:
         for line in build.ptxas_info(name):
             log(f"ptxas {name}: {line}")
 
@@ -215,16 +221,24 @@ def phase_canny(images, device):
         require(agree >= 0.999, f"canny kernel disagrees: {flips} flips")
         ms = cuda_ms(lambda: canny_edges_cuda(gray))
         plain_ms = cuda_ms(lambda: canny_edges(gray))
+        # device time alone (torch.profiler): the event pair around one
+        # call also holds its host work
+        dev_ms = sum(device_ms_by_kernel(lambda: canny_edges_cuda(gray),
+                                         20).values())
         px = gray.numel()
         bound_ms, bound_by = bound(8 * px, CANNY_OPS_PER_PIXEL * px,
                                    F32_OPS_PER_S)
-        log(f"canny {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"canny {shape}: kernel {ms:.4f} ms, device {dev_ms:.5f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), device {dev_ms / bound_ms:.2f}x bound")
+        sized = {"max_abs_err": float((out - ref).abs().max()),
+                 "flips": flips, "shape": list(shape), "ms": ms,
+                 "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
         if not result:
-            result = {"max_abs_err": float((out - ref).abs().max()),
-                      "flips": flips, "shape": list(shape), "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
+            result = sized
+        else:
+            result["large"] = sized
     return result
 
 
@@ -634,7 +648,48 @@ def phase_serving(model, device):
     log(f"serving: 3 volumes, {timing['ms_per_slice']:.4f} ms/slice, "
         f"launches canny {dc} dense_block {dd}")
     require(dc == 3 and dd == 12, "serving did not run through the kernels")
+    serve_f32(model, device)
     return timing["ms_per_slice"]
+
+
+def serve_f32(model, device):
+    """`make_infer_step` serves an f32 copy of the model: the plain forward,
+    no dense-block launch (that kernel takes bf16 only), preds agreeing
+    with a second call of the model's own forward (cuBLAS and cuDNN may sum
+    in another order from call to call, and the random model's logits tie
+    at some pixels; the card test holds them equal at 64^2)."""
+    import copy
+
+    import torch
+
+    from saunet_tpu_torch.data import normalize_for_eval
+    from saunet_tpu_torch.ops.cuda import canny_edges_cuda, dense_block
+    from saunet_tpu_torch.train import InferState, make_infer_step
+
+    model32 = copy.deepcopy(model)
+    model32.dtype = torch.float32
+    state = InferState(model32, device)
+    images = normalize_for_eval(synthetic_slices(
+        8, SIZE, SIZE, torch.Generator().manual_seed(4), device))
+    c0, d0 = canny_edges_cuda.launches, dense_block.launches
+    probs, preds, _ = make_infer_step(model32, with_probs=True)(state,
+                                                                 images)
+    torch.cuda.synchronize()
+    dc, dd = canny_edges_cuda.launches - c0, dense_block.launches - d0
+    with torch.inference_mode():
+        seg, _ = model32(images.permute(0, 3, 1, 2))
+    agree = float((preds == seg.argmax(dim=1)).float().mean())
+    dp = float((probs - torch.softmax(seg, dim=1).permute(0, 2, 3, 1))
+               .abs().max())
+    log(f"serving an f32 model: 8 slices at {SIZE}^2, preds "
+        f"{tuple(preds.shape)}, launches canny {dc} dense_block {dd}; "
+        f"against the model's forward: argmax agreement {agree:.6f}, "
+        f"max|d probs| {dp:.6g}")
+    require(preds.shape == (8, SIZE, SIZE) and dd == 0 and dc == 1,
+            "the f32 model was not served by the plain forward")
+    require(bool(torch.isfinite(probs).all()) and int(preds.min()) >= 0
+            and int(preds.max()) < 4, "f32 serving: bad probs or labels")
+    require(agree >= 0.99, "f32 serving differs from the model's forward")
 
 
 def phase_warp(device):
@@ -1054,7 +1109,9 @@ def main() -> int:
     for name, source, replaces, res, extra in (
             ("canny", "canny.cu", "saunet_tpu/ops/pallas/canny.py:230",
              canny, {"also_replaces": "saunet_tpu/ops/pallas/canny.py:189",
-                     "flips": canny["flips"], "shape": canny["shape"]}),
+                     "flips": canny["flips"], "shape": canny["shape"],
+                     "device_ms": canny["device_ms"],
+                     "large": canny["large"]}),
             ("dense_block", "dense_block.cu",
              "saunet_tpu/ops/pallas/dense_block.py:256", dense,
              {"max_err_over_tol": dense["max_err_over_tol"],

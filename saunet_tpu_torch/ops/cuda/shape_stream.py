@@ -7,7 +7,9 @@ and their BN running statistics into the kernel's operands, once per model;
 `shape_stream_fused` runs the stream through the CUDA kernel for a CUDA
 tensor (or raises), and through `shape_stream_plain` for a tensor on the
 CPU. Layouts are the JAX package's: the packed (N, H, W, 67) input of
-`SAUNet.shape_stream_inputs` in, the (N, H, W, 1) f32 edge map out.
+`SAUNet.shape_stream_inputs` in, the (N, H, W, 1) f32 edge map out; the
+fold also holds the 3x3 conv weights in the kernel's layout
+(`layout_specs`), which the plain version does not read.
 
 Stage i (C = 64, 32, 16 channels entering it, Cn = C / 2, cue = input
 channel 64 + i), in bf16 with f32 accumulation, rounding where the TPU
@@ -66,6 +68,30 @@ def operand_specs(i: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
             "g_wg": ((cn, cn), bf16)}
 
 
+def layout_specs(i: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Stage i's conv weights as the kernel reads them, name -> (shape,
+    dtype): r_w1k[tap, kc, o, e] = r_w1[tap, 8 * kc + e, o], and so r_w2k,
+    the K-major layout of wgmma's B operand (8 input channels of one output
+    channel in 16 bytes, one tap's C x C weights contiguous)."""
+    c = CHANNELS[i]
+    return {k: ((9, c // 8, c, 8), torch.bfloat16) for k in ("r_w1k", "r_w2k")}
+
+
+def kernel_operands(i: int) -> list:
+    """Stage i's operand names in the order the C entry point reads them:
+    `operand_specs` with the conv weights in their kernel layout."""
+    return [k + "k" if k in ("r_w1", "r_w2") else k for k in operand_specs(i)]
+
+
+# Every operand of the fold, name -> (shape, dtype), and the order of the
+# pointers the C entry point reads; made once, each call checks against them
+_FOLD = {f"{i}/{k}": spec for i in range(3)
+         for k, spec in {**operand_specs(i), **layout_specs(i)}.items()}
+_FOLD["fuse_w"] = ((CHANNELS[3],), torch.bfloat16)
+_POINTERS = [f"{i}/{k}" for i in range(3)
+             for k in kernel_operands(i)] + ["fuse_w"]
+
+
 def fold_shape_stream_params(model, eps: float = BN_EPS
                              ) -> Dict[str, torch.Tensor]:
     """BN-fold the stream modules of a `models.saunet.SAUNet` into kernel
@@ -82,7 +108,8 @@ def fold_shape_stream_params(model, eps: float = BN_EPS
       g_a2, g_bn2b: () f32, gate_bn2's affine
       g_wg: (Cn, Cn) bf16, the gate's conv
       fuse_w: (8,) bf16
-    """
+    and beside them the kernel's layout of the conv weights, r_w1k and r_w2k
+    (`layout_specs`), made here once per model."""
     folded: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
         for i in range(3):
@@ -111,6 +138,10 @@ def fold_shape_stream_params(model, eps: float = BN_EPS
             for k, (_, dtype) in operand_specs(i).items():
                 # copies: no operand aliases a weight
                 folded[f"{i}/{k}"] = ops[k].to(dtype).contiguous().clone()
+            for k in ("r_w1", "r_w2"):
+                folded[f"{i}/{k}k"] = (folded[f"{i}/{k}"]
+                                       .view(9, c // 8, 8, c)
+                                       .permute(0, 1, 3, 2).contiguous())
         folded["fuse_w"] = _mat(model.fuse)[:, 0].to(
             torch.bfloat16).contiguous()
     return folded
@@ -168,21 +199,22 @@ def _check(packed: torch.Tensor, folded: Dict[str, torch.Tensor]) -> None:
     if packed.dtype != torch.bfloat16 or not packed.is_contiguous():
         raise ValueError(f"shape stream kernel: input must be contiguous "
                          f"bf16, got {packed.dtype}")
-    want = {f"{i}/{k}": spec for i in range(3)
-            for k, spec in operand_specs(i).items()}
-    want["fuse_w"] = ((CHANNELS[3],), torch.bfloat16)
-    if set(folded) != set(want):
+    if packed.data_ptr() % 16:
+        raise ValueError("shape stream kernel: input must start on a "
+                         "16-byte boundary")
+    if folded.keys() != _FOLD.keys():
         raise ValueError(f"shape stream kernel: operands "
-                         f"{sorted(set(folded) ^ set(want))} missing or "
+                         f"{sorted(set(folded) ^ set(_FOLD))} missing or "
                          f"unknown")
-    for name, (shape, dtype) in want.items():
+    dev = packed.device
+    for name, (shape, dtype) in _FOLD.items():
         v = folded[name]
-        if tuple(v.shape) != shape or v.dtype != dtype:
+        if v.shape != shape or v.dtype != dtype:
             raise ValueError(f"shape stream kernel: {name} must be {dtype} "
                              f"{shape}, got {v.dtype} {tuple(v.shape)}")
-        if v.device != packed.device or not v.is_contiguous():
+        if v.device != dev or not v.is_contiguous():
             raise ValueError(f"shape stream kernel: {name} must be "
-                             f"contiguous on {packed.device}")
+                             f"contiguous on {dev}")
 
 
 def shape_stream_fused(packed: torch.Tensor,
@@ -202,8 +234,7 @@ def shape_stream_fused(packed: torch.Tensor,
     lib = build.load("shape_stream")
     if lib.shape_stream_operands() != len(operand_specs(0)):
         raise RuntimeError("shape stream kernel built for other operands")
-    ptrs = [folded[f"{i}/{k}"].data_ptr() for i in range(3)
-            for k in operand_specs(i)] + [folded["fuse_w"].data_ptr()]
+    ptrs = [folded[name].data_ptr() for name in _POINTERS]
     ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     dev = packed.device
     out = torch.empty((n, h, w, 1), dtype=torch.float32, device=dev)

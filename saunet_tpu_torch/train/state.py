@@ -194,15 +194,18 @@ def make_infer_step(model, with_probs: bool = False, with_edge: bool = False,
 
     images: (N, H, W, 3). preds: (N, H, W) int64. probs (N, H, W, C) and
     edge (N, H, W, 1) are None unless `with_probs` / `with_edge` is set.
-    The encoder always runs through the dense-block kernel wrapper (the
-    kernel on the card, its plain version on the CPU)."""
+    The encoder runs on the dense-block kernel for a bf16 model on the card
+    (`use_fused_encoder`); any other model or device takes the plain
+    forward."""
 
     def step(state: InferState, images: torch.Tensor):
         _check_state(state, model, "make_infer_step")
         m = state.model
         with torch.inference_mode():
             x = images.to(state.device)
-            out = _forward_eval(m, state.folded, x, True, with_att)
+            fused = use_fused_encoder(m, x)
+            out = _forward_eval(m, state.folded if fused else None, x, fused,
+                                with_att)
             seg, edge_full = out[0], out[1]
             preds = seg.argmax(dim=1)
             probs = (torch.softmax(seg, dim=1).permute(0, 2, 3, 1)

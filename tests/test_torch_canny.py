@@ -107,11 +107,16 @@ def test_image_to_gray255(jx):
 
 
 def test_canny_kernel_matches_plain_on_card(cuda_device):  # noqa: F811
-    """The CUDA kernel against its plain version on the card, at a size
-    with several tiles, a ragged edge, and the 64x48 image."""
-    gray = (np.random.RandomState(3).rand(4, 100, 70) * 255).astype(
-        np.float32)
-    for g in (gray, _structured_64x48()):
+    """The CUDA kernel against its plain version on the card: several row
+    bands with a ragged last band (100x70), the 64x48 image, 512x512 (a
+    16-word window, 32-row bands), an odd width that ends inside a bit
+    word and is not a multiple of 4 (37x45, scalar loads and stores), and
+    a width past 512 columns (several windows with a word of halo)."""
+    rs = np.random.RandomState(3)
+    grays = [(rs.rand(*shape) * 255).astype(np.float32)
+             for shape in ((4, 100, 70), (2, 512, 512), (3, 37, 45),
+                           (1, 40, 1100))]
+    for g in grays + [_structured_64x48()]:
         t = torch.from_numpy(g).to(cuda_device)
         before = canny_edges_cuda.launches
         out = canny_edges_cuda(t[..., None].contiguous())

@@ -17,6 +17,11 @@ import pytest
 import torch
 
 from saunet_tpu_torch.models import build_unet
+from saunet_tpu_torch.models.blocks import (
+    Conv2d,
+    GatedSpatialConv,
+    ResBasicBlock,
+)
 from saunet_tpu_torch.models.init import init_random_
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from saunet_tpu_torch.ops.cuda import (
@@ -24,7 +29,12 @@ from saunet_tpu_torch.ops.cuda import (
     shape_stream_fused,
     shape_stream_plain,
 )
-from saunet_tpu_torch.ops.cuda.shape_stream import CHANNELS, operand_specs
+from saunet_tpu_torch.ops.cuda.shape_stream import (
+    CHANNELS,
+    kernel_operands,
+    layout_specs,
+    operand_specs,
+)
 from torch_port_util import cuda_device, fill_variables  # noqa: F401
 
 BATCH, SIZE, EPS = 2, 32, 1e-5
@@ -110,7 +120,7 @@ def port(jx):
 def test_fold_matches_jax(jx, port):
     ref = jx.fold(jx.variables["params"], jx.variables["batch_stats"], EPS)
     _, ours = port
-    assert len(ours) == 3 * 18 + 1
+    assert len(ours) == 3 * (18 + 2) + 1  # and r_w1k, r_w2k a stage
     checked = 0
     for i in range(3):
         c, cn = CHANNELS[i], CHANNELS[i + 1]
@@ -245,30 +255,71 @@ def test_wrapper_runs_plain_version_on_cpu(port, packed):
     assert torch.equal(out, shape_stream_plain(x, folded))
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 37, 45)])
+def _stream_modules():
+    """The stream's modules alone (res1..3, d1..3, gate1..3, fuse), as
+    `SAUNet` names them, with seeded random weights and BN statistics."""
+    m = torch.nn.Module()
+    for i, (c, cn) in enumerate(zip(CHANNELS, CHANNELS[1:]), 1):
+        setattr(m, f"res{i}", ResBasicBlock(c))
+        setattr(m, f"d{i}", Conv2d(c, cn))
+        setattr(m, f"gate{i}", GatedSpatialConv(cn, cn))
+    m.fuse = Conv2d(CHANNELS[3], 1, bias=False)
+    return init_random_(m, torch.Generator().manual_seed(2)).eval()
+
+
+def test_kernel_layout():
+    """The fold's kernel-layout conv weights hold exactly the JAX-layout
+    ones, permuted (no rounding, no padding), and the kernel's operand
+    order names each stage's operands once."""
+    folded = fold_shape_stream_params(_stream_modules())
+    for i in range(3):
+        c = CHANNELS[i]
+        for k, (shape, dtype) in layout_specs(i).items():
+            laid, ref = folded[f"{i}/{k}"], folded[f"{i}/{k[:-1]}"]
+            assert tuple(laid.shape) == shape and laid.dtype == dtype
+            assert laid.is_contiguous()
+            assert torch.equal(laid.permute(0, 1, 3, 2).reshape(9, c, c),
+                               ref), f"{i}/{k}"
+            assert torch.equal(laid.flatten().sort().values,
+                               ref.flatten().sort().values)
+        names = kernel_operands(i)
+        assert len(names) == len(set(names)) == len(operand_specs(i))
+        assert set(names) == (set(operand_specs(i)) - {"r_w1", "r_w2"}
+                              | set(layout_specs(i)))
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 37, 45), (4, 100, 150)])
 def test_shape_stream_kernel_matches_plain_on_card(cuda_device,  # noqa: F811
                                                    shape):
-    """The CUDA kernel against its plain version on the card, at 32x32 and
-    at a size whose 16x16 tiles do not divide the image (ragged tiles, and
-    tile boundaries inside the image where the 2-pixel halo is recomputed).
+    """The CUDA kernel against its plain version on the card, at 32x32, at
+    a size whose 16x28 tiles do not divide the image (ragged tiles, and
+    tile boundaries inside the image where the 2-pixel halo is recomputed),
+    and at one with more tiles (4 x 7 x 6 = 168) than the persistent grid
+    of stage 0 has blocks (one an SM), so that blocks walk several tiles.
     The fuse kernel is scaled by 0.01 so that the edge sigmoid does not
     saturate and amplify rounding flips; the tolerances are the JAX
-    package's for its kernel against the XLA stream."""
-    gen = torch.Generator().manual_seed(0)
-    model = init_random_(build_unet(dtype="bfloat16"), gen)
-    with torch.no_grad():
-        model.fuse.weight.mul_(FUSE_SCALE)
-    folded = {k: v.to(cuda_device)
-              for k, v in fold_shape_stream_params(model.eval()).items()}
-    n, h, w = shape
-    packed = torch.randn(n, h, w, 67, generator=gen).to(cuda_device,
-                                                        torch.bfloat16)
-    before = shape_stream_fused.launches
-    out = shape_stream_fused(packed, folded)
-    ref = shape_stream_plain(packed, folded)
-    torch.cuda.synchronize()
-    assert shape_stream_fused.launches == before + 1
-    assert out.shape == ref.shape == (n, h, w, 1)
-    err = (out - ref).abs()
-    assert float(err.max()) <= 0.04
-    assert float(err.median()) <= 0.004
+    package's for its kernel against the XLA stream. The plain version's
+    convolutions run in full f32 (cuDNN would take TF32 by default)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator().manual_seed(0)
+        model = init_random_(build_unet(dtype="bfloat16"), gen)
+        with torch.no_grad():
+            model.fuse.weight.mul_(FUSE_SCALE)
+        folded = {k: v.to(cuda_device)
+                  for k, v in fold_shape_stream_params(model.eval()).items()}
+        n, h, w = shape
+        packed = torch.randn(n, h, w, 67, generator=gen).to(
+            cuda_device, torch.bfloat16)
+        before = shape_stream_fused.launches
+        out = shape_stream_fused(packed, folded)
+        ref = shape_stream_plain(packed, folded)
+        torch.cuda.synchronize()
+        assert shape_stream_fused.launches == before + 1
+        assert out.shape == ref.shape == (n, h, w, 1)
+        err = (out - ref).abs()
+        assert float(err.max()) <= 0.04
+        assert float(err.median()) <= 0.004
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -16,8 +16,10 @@ from saunet_tpu_torch.data import (
     resample_to_orig,
 )
 from saunet_tpu_torch.models import build_unet
-from saunet_tpu_torch.models.init import init_random_
+from saunet_tpu_torch.models.init import calibrate_bn_, init_random_
+from saunet_tpu_torch.ops.cuda import dense_block
 from saunet_tpu_torch.train import InferState, make_infer_step
+from torch_port_util import cuda_device  # noqa: F401  (fixture)
 
 CROP = 32
 SHAPES = {1: (40, 44, 2), 2: (36, 30, 3)}  # patient -> (H, W, Z)
@@ -74,3 +76,33 @@ def test_test_and_pack_matches_infer_step(tmp_path, extra):
         maps = os.listdir(os.path.join(res, "t", "attention"))
         assert len(pngs) == n_slices
         assert len(maps) == 7 * n_slices
+
+
+def test_infer_step_serves_f32_model_on_card(cuda_device):  # noqa: F811
+    """An f32 model on the card is served by the plain forward: the
+    dense-block kernel, which takes bf16 only, is not launched, and the
+    preds equal the model's own forward on the same card (TF32 off, so
+    both are full f32)."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        images = torch.from_numpy(np.random.RandomState(1).randn(
+            2, 64, 64, 3).astype(np.float32)).to(cuda_device)
+        model = init_random_(build_unet(dtype="float32"),
+                             torch.Generator().manual_seed(0))
+        model = calibrate_bn_(model.to(cuda_device),
+                              images.permute(0, 3, 1, 2))
+        state = InferState(model, cuda_device)
+        before = dense_block.launches
+        _, preds, _ = make_infer_step(model)(state, images)
+        with torch.inference_mode():
+            seg, _ = state.model(images.permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        assert dense_block.launches == before
+        assert preds.shape == (2, 64, 64)
+        assert torch.equal(preds, seg.argmax(dim=1))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
