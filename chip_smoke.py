@@ -39,8 +39,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      its argmax agrees with `make_infer_step`'s preds on >= 0.95 of pixels;
      slices/s of the route beside the step's, timed in turns.
   5. serving: 3 synthetic volumes (256x256x10) through
-     `saunet_tpu_torch.cli.test_and_pack`: NIfTI outputs in the original
-     geometry with labels in {0..3}, timing.json, and the kernels launched.
+     `saunet_tpu_torch.cli.test_and_pack` with its defaults: NIfTI outputs
+     in the original geometry with labels in {0..3}, a PNG a slice,
+     timing.json, and the kernels launched.
      Then `make_infer_step` serves 8 slices at 224^2 from an f32 copy of
      the model: the plain forward, 0 dense-block launches, preds agreeing
      with the model's own forward on >= 0.99 of pixels.
@@ -63,7 +64,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      for one epoch at crop 224 on the card: per-class IoU printed, best.json
      and a checkpoint written; counters zeroed just before and read just
      after: 1 warp and 1 Canny per train step, 1 Canny and 4 dense blocks
-     per validation batch. The checkpoint is then served by test_and_pack.
+     per validation batch. The checkpoint is then served by test_and_pack
+     (its default --visualize: one PNG a slice).
+  9. saliency: `saunet_tpu_torch.cli.saliency` on that checkpoint and a
+     validation slice for each method at the CLI's defaults (256^2,
+     f32, n = 50), four PNGs each; counters zeroed just before and read
+     just after: 1 Canny per vanilla or guided map, 5 per SmoothGrad-50
+     map, nothing else; K1 exact (0 flips) against the plain Canny on
+     every input those runs gave it. Then guided SmoothGrad-50 of a phantom slice at
+     224^2 in bf16 in batches of 10 (the JAX bench's saliency shape): 5
+     Canny launches a map, K1 exact (0 flips) against the plain Canny on
+     every noisy batch, maps/s (host clock and synchronise, median of 5
+     after a warm-up), peak memory, a torch.profiler window over one map
+     (device idle share, top operations) and the vanilla map's time
+     beside it; and the f32 map with the Canny kernel within
+     1e-3*max|ref| of the map with the plain Canny (TF32 off), beside
+     how far two runs of the plain route differ.
 Then a {"kernels": [...]} line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type,
 H100 SXM data sheet) and, last, the {"ok": true, "device": ...} line.
@@ -632,9 +648,12 @@ def phase_serving(model, device):
         c0, d0 = canny_edges_cuda.launches, dense_block.launches
         pack_main(["--id", "smoke", "--checkpoint", ckpt,
                    "--data-root", os.path.join(tmp, "data"),
-                   "--crop_size", str(SIZE), "--no-visualize",
-                   "--save_test_path", out, "--result",
-                   os.path.join(tmp, "res"), "--device", str(device)])
+                   "--crop_size", str(SIZE), "--save_test_path", out,
+                   "--result", os.path.join(tmp, "res"),
+                   "--device", str(device)])
+        pngs = _pngs(os.path.join(tmp, "res", "smoke"))
+        require(len(pngs) == 3 * shape[2],
+                f"expected {3 * shape[2]} PNGs, got {len(pngs)}")
         volumes = sorted(f for f in os.listdir(out) if f.endswith(".nii.gz"))
         require(len(volumes) == 3, f"expected 3 volumes, got {volumes}")
         for name in volumes:
@@ -646,7 +665,7 @@ def phase_serving(model, device):
             timing = json.load(f)
     dc, dd = canny_edges_cuda.launches - c0, dense_block.launches - d0
     log(f"serving: 3 volumes, {timing['ms_per_slice']:.4f} ms/slice, "
-        f"launches canny {dc} dense_block {dd}")
+        f"launches canny {dc} dense_block {dd}, {len(pngs)} PNGs")
     require(dc == 3 and dd == 12, "serving did not run through the kernels")
     serve_f32(model, device)
     return timing["ms_per_slice"]
@@ -811,10 +830,11 @@ def _zero_counts():
         k.launches = 0
 
 
-def _profile(step_fn, steps: int = 2) -> dict:
+def _profile(step_fn, steps: int = 2,
+             table_file: str = "train_step_profile.txt") -> dict:
     """torch.profiler over `steps` calls of `step_fn`: device time by
     kernel, the union of kernel intervals against the host window, and the
-    top operations (the whole table goes to chiprun_out/)."""
+    top operations (the whole table goes to OUT_DIR/`table_file`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -842,7 +862,7 @@ def _profile(step_fn, steps: int = 2) -> dict:
            else "self_cuda_time_total")
     table = prof.key_averages().table(sort_by=key, row_limit=40)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "train_step_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, table_file), "w") as f:
         f.write(table)
     top = sorted(((getattr(e, key), e.key) for e in prof.key_averages()
                   if e.device_type != DeviceType.CUDA
@@ -988,10 +1008,20 @@ def _write_train_volumes(root, rs, patients=3, shape=(256, 256, 6)):
             nifti.save(seg, base + "_gt.nii.gz", pixdim=(1.5, 1.5, 10))
 
 
-def phase_train_cli(device):
-    """One epoch of `cli.train` on the card, then `test_and_pack` serves
-    its checkpoint."""
+def _pngs(directory: str) -> list:
+    """The PNG files in `directory`, each checked for the PNG signature."""
+    names = sorted(f for f in os.listdir(directory) if f.endswith(".png"))
+    for name in names:
+        with open(os.path.join(directory, name), "rb") as f:
+            require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name}: not a PNG")
+    return names
+
+
+def phase_train_cli(device, tmp):
+    """One epoch of `cli.train` on the card in `tmp`, then `test_and_pack`
+    serves its checkpoint. Returns the data root and the checkpoint too."""
     import numpy as np
+    import torch
 
     from saunet_tpu_torch.cli.test_and_pack import main as pack_main
     from saunet_tpu_torch.cli.train import main as train_main
@@ -1000,59 +1030,242 @@ def phase_train_cli(device):
 
     rs = np.random.RandomState(9)
     batch, z = 8, 6
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "data")
-        _write_train_volumes(root, rs, shape=(256, 256, z))
-        tdir = os.path.join(root, "testing", "patient101")
-        os.makedirs(tdir)
-        nifti.save((rs.rand(256, 256, z) * 300).astype(np.float32),
-                   os.path.join(tdir, "patient101_frame01.nii.gz"),
-                   pixdim=(1.5, 1.5, 10))
-        argv = ["--data-root", root, "--ckpt", os.path.join(tmp, "ckpt"),
-                "--num_epoch", "1", "--batch_size_per_device", str(batch),
-                "--crop_size", str(SIZE), "--device", str(device),
-                "--id", "smoke"]
-        buf = io.StringIO()
-        _zero_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            train_main(argv)
-        import torch
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = _counts()
-        out = buf.getvalue()
-        ious = [line for line in out.splitlines()
-                if line.startswith("class [")]
-        log("\n".join(ious))
-        # 5 training volumes and 1 validation volume of z slices
-        steps, val_batches = (5 * z) // batch, -(-z // batch)
-        log(f"train CLI: 1 epoch, {steps} steps, {val_batches} validation "
-            f"batches, {seconds:.3f} s; launches {launches}")
-        require(len(ious) == 3, "per-class IoU not printed")
-        require(launches == {"canny": steps + val_batches,
-                             "dense_block": 4 * val_batches, "warp": steps,
-                             "gather": 0, "shape_stream": 0},
-                f"train CLI did not run each kernel as expected: "
-                f"{launches}")
-        run = parse_args(argv).ckpt
-        files = sorted(os.listdir(run))
-        require("best.json" in files and "state_epoch_1.pt" in files,
-                f"train CLI wrote {files}")
-        out_dir = os.path.join(tmp, "out")
-        pack_main(["--id", "smoke", "--checkpoint",
-                   os.path.join(run, "state_epoch_1.pt"),
-                   "--data-root", root, "--crop_size", str(SIZE),
-                   "--no-visualize", "--save_test_path", out_dir,
-                   "--result", os.path.join(tmp, "res"),
-                   "--device", str(device)])
-        pred = nifti.load(os.path.join(out_dir, "patient101_ED.nii.gz")).data
-        require(pred.shape == (256, 256, z), f"served shape {pred.shape}")
-        require(set(np.unique(pred)) <= {0, 1, 2, 3}, "served labels")
-        log(f"served the train checkpoint: {pred.shape}, labels "
-            f"{sorted(np.unique(pred).tolist())}")
+    root = os.path.join(tmp, "data")
+    _write_train_volumes(root, rs, shape=(256, 256, z))
+    tdir = os.path.join(root, "testing", "patient101")
+    os.makedirs(tdir)
+    nifti.save((rs.rand(256, 256, z) * 300).astype(np.float32),
+               os.path.join(tdir, "patient101_frame01.nii.gz"),
+               pixdim=(1.5, 1.5, 10))
+    argv = ["--data-root", root, "--ckpt", os.path.join(tmp, "ckpt"),
+            "--num_epoch", "1", "--batch_size_per_device", str(batch),
+            "--crop_size", str(SIZE), "--device", str(device),
+            "--id", "smoke"]
+    buf = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    out = buf.getvalue()
+    ious = [line for line in out.splitlines() if line.startswith("class [")]
+    log("\n".join(ious))
+    # 5 training volumes and 1 validation volume of z slices
+    steps, val_batches = (5 * z) // batch, -(-z // batch)
+    log(f"train CLI: 1 epoch, {steps} steps, {val_batches} validation "
+        f"batches, {seconds:.3f} s; launches {launches}")
+    require(len(ious) == 3, "per-class IoU not printed")
+    require(launches == {"canny": steps + val_batches,
+                         "dense_block": 4 * val_batches, "warp": steps,
+                         "gather": 0, "shape_stream": 0},
+            f"train CLI did not run each kernel as expected: {launches}")
+    run = parse_args(argv).ckpt
+    files = sorted(os.listdir(run))
+    require("best.json" in files and "state_epoch_1.pt" in files,
+            f"train CLI wrote {files}")
+    ckpt = os.path.join(run, "state_epoch_1.pt")
+    out_dir, res = os.path.join(tmp, "out"), os.path.join(tmp, "res")
+    pack_main(["--id", "smoke", "--checkpoint", ckpt, "--data-root", root,
+               "--crop_size", str(SIZE), "--save_test_path", out_dir,
+               "--result", res, "--device", str(device)])
+    pred = nifti.load(os.path.join(out_dir, "patient101_ED.nii.gz")).data
+    require(pred.shape == (256, 256, z), f"served shape {pred.shape}")
+    require(set(np.unique(pred)) <= {0, 1, 2, 3}, "served labels")
+    require(len(_pngs(os.path.join(res, "smoke"))) == z, "served PNGs")
+    log(f"served the train checkpoint: {pred.shape}, labels "
+        f"{sorted(np.unique(pred).tolist())}, {z} PNGs")
     return launches, {"seconds": seconds, "steps": steps,
-                      "val_batches": val_batches}
+                      "val_batches": val_batches}, root, ckpt
+
+
+SALIENCY_METHODS = {"vanilla": 1, "guided": 1, "smoothgrad": 5,
+                    "smoothgrad-guided": 5}  # method -> Canny launches
+SMOOTHGRAD_N, SMOOTHGRAD_BATCH = 50, 10
+# the SmoothGrad map with the Canny kernel against the plain Canny, f32:
+# the forward is the same; the backward's atomics (bilinear upsampling)
+# may sum in another order (the phase prints how far two runs of the plain
+# route differ)
+SALIENCY_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def _record_k1_inputs():
+    """Record a copy of every gray image the model hands K1 while the
+    block runs; the kernel itself is called once per call, as before."""
+    import saunet_tpu_torch.models.saunet as saunet_mod
+
+    kernel, seen = saunet_mod.canny_edges_cuda, []
+
+    def recording(gray, *args, **kwargs):
+        seen.append((gray.detach().clone(), args, kwargs))
+        return kernel(gray, *args, **kwargs)
+
+    saunet_mod.canny_edges_cuda = recording
+    try:
+        yield seen
+    finally:
+        saunet_mod.canny_edges_cuda = kernel
+
+
+def _k1_flips(seen) -> int:
+    """K1 against the plain Canny on recorded inputs: differing pixels."""
+    from saunet_tpu_torch.ops.cuda import canny_edges_cuda
+    from saunet_tpu_torch.ops.edge import canny_edges
+
+    return sum(int((canny_edges_cuda(g, *a, **k) != canny_edges(g, *a, **k))
+                   .sum()) for g, a, k in seen)
+
+
+def phase_saliency(device, root, ckpt, tmp):
+    """`cli.saliency` on the train CLI's checkpoint and a validation slice
+    for every method at its defaults (256^2, f32, n = 50), counters zeroed
+    just before and read just after; then guided SmoothGrad-50 of a phantom
+    slice at 224^2 in bf16, batches of 10 (the JAX bench's saliency shape).
+    K1 is held against the plain Canny on every input the CLI runs and the
+    phantom's noisy batches gave it; the f32 map from the kernel against
+    the plain Canny's, beside two runs of the plain route; maps/s and peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from saunet_tpu_torch.cli.saliency import main as saliency_main
+    from saunet_tpu_torch.data import make_phantom_set, normalize_for_eval
+    from saunet_tpu_torch.interpret import (
+        guided_model,
+        smooth_grad,
+        vanilla_gradients,
+    )
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.ops.cuda import canny_edges_cuda
+    from saunet_tpu_torch.train import restore_params_only
+
+    _zero_counts()
+    seconds = {}
+    cli_inputs = []
+    for method, canny in SALIENCY_METHODS.items():
+        out = os.path.join(tmp, "saliency", method)
+        c0 = canny_edges_cuda.launches
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                _record_k1_inputs() as seen:
+            saliency_main(["--checkpoint", ckpt, "--data-root", root,
+                           "--method", method, "--out", out,
+                           "--device", str(device)])
+        torch.cuda.synchronize()
+        seconds[method] = time.perf_counter() - t0
+        cli_inputs += seen
+        pngs = _pngs(out)
+        require(len(pngs) == 4 and all(p.endswith(s) for p, s in zip(
+            pngs, ("_color.png", "_gray.png", "_neg.png", "_pos.png"))),
+            f"saliency {method} wrote {pngs}")
+        require(canny_edges_cuda.launches - c0 == canny,
+                f"saliency {method}: {canny_edges_cuda.launches - c0} "
+                f"Canny launches, expected {canny}")
+    launches = _counts()
+    log(f"saliency CLI, 256^2 f32, n = {SMOOTHGRAD_N}: seconds {seconds}; "
+        f"launches {launches}")
+    require(launches == {"canny": sum(SALIENCY_METHODS.values()),
+                         "dense_block": 0, "warp": 0, "gather": 0,
+                         "shape_stream": 0},
+            f"saliency did not run each kernel as expected: {launches}")
+    cli_flips = _k1_flips(cli_inputs)
+    log(f"saliency CLI K1: {len(cli_inputs)} inputs of shapes "
+        f"{sorted({tuple(g.shape) for g, _, _ in cli_inputs})}, flips "
+        f"{cli_flips}")
+    require(cli_flips == 0, "canny kernel disagrees on the saliency CLI's "
+            "inputs")
+
+    imgs, labels = make_phantom_set(1, hw=SIZE, seed=0)
+    image = normalize_for_eval(torch.from_numpy(imgs).to(device))[0]
+    target = torch.from_numpy(labels[0].astype(np.int64)).to(device)
+
+    def load(dtype):
+        model = restore_params_only(ckpt, build_unet(dtype=dtype))
+        return guided_model(model.to(device).eval())
+
+    def smoothgrad_map(model, grad_fn=None):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return smooth_grad(
+            grad_fn or (lambda b: vanilla_gradients(model, b, target)), gen,
+            image, n=SMOOTHGRAD_N, batch_size=SMOOTHGRAD_BATCH)
+
+    model = load("bfloat16")
+    _zero_counts()
+    with _record_k1_inputs() as batches:
+        sg = smoothgrad_map(model)
+        torch.cuda.synchronize()
+    warm = _counts()
+    require(warm["canny"] == SMOOTHGRAD_N // SMOOTHGRAD_BATCH
+            and sum(warm.values()) == warm["canny"],
+            f"guided SmoothGrad launches {warm}")
+    require(sg.shape == (SIZE, SIZE, 3) and bool(torch.isfinite(sg).all())
+            and float(sg.abs().max()) > 0, "guided SmoothGrad map")
+    # K1 on the gray of each noisy batch, as the path gave it
+    flips = _k1_flips(batches)
+    n_batches = len(batches)
+    log(f"saliency K1: {n_batches} noisy batches of "
+        f"{tuple(batches[0][0].shape[:3])}, flips {flips}")
+    require(flips == 0, "canny kernel disagrees on the saliency path")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        smoothgrad_map(model)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    map_s = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"guided SmoothGrad-{SMOOTHGRAD_N}, {SIZE}^2 bf16, batches of "
+        f"{SMOOTHGRAD_BATCH}: {map_s * 1e3:.3f} ms a map median of 5 "
+        f"({1 / map_s:.4f} maps/s), maps {times}, peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    prof = _profile(lambda: smoothgrad_map(model), steps=1,
+                    table_file="saliency_profile.txt")
+    log(f"guided SmoothGrad profile: window {prof['window_ms']:.3f} ms, "
+        f"{prof['kernels']} kernels, device busy "
+        f"{prof['device_busy_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']}")
+    for name, ms in prof["top_ops_self_device_ms"]:
+        log(f"  {ms:10.4f} ms/map  {name}")
+    # the same map with the model's own ReLU (vanilla SmoothGrad)
+    relu_model = restore_params_only(ckpt, build_unet(dtype="bfloat16"))
+    relu_model = relu_model.to(device).eval()
+    vanilla_times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        smoothgrad_map(relu_model)
+        torch.cuda.synchronize()
+        vanilla_times.append(time.perf_counter() - t0)
+    vanilla_s = statistics.median(vanilla_times[1:])
+    log(f"vanilla SmoothGrad-{SMOOTHGRAD_N}, same shapes: "
+        f"{vanilla_s * 1e3:.3f} ms a map median of 3 after a warm-up, "
+        f"maps {vanilla_times}")
+    del model, relu_model, batches
+
+    model32 = load("float32")
+    ref = smoothgrad_map(model32)
+    model32.edge_kernel = "plain"
+    plain = smoothgrad_map(model32)
+    plain_again = smoothgrad_map(model32)
+    torch.cuda.synchronize()
+    err = float((ref - plain).abs().max() / plain.abs().max())
+    rerun = float((plain_again - plain).abs().max() / plain.abs().max())
+    log(f"guided SmoothGrad f32, Canny kernel vs plain: max|d| / max|ref| "
+        f"{err:.3g} (tolerance {SALIENCY_TOL}); plain vs plain run again "
+        f"{rerun:.3g}")
+    require(err <= SALIENCY_TOL, "SmoothGrad with the Canny kernel "
+            "disagrees with the plain Canny's")
+    return launches, {"cli_seconds": seconds, "map_ms": map_s * 1e3,
+                      "maps_per_s": 1 / map_s, "map_times_s": times,
+                      "peak_memory_bytes": peak, "profile": prof,
+                      "vanilla_map_ms": vanilla_s * 1e3,
+                      "k1_flips": cli_flips + flips,
+                      "k1_inputs": len(cli_inputs) + n_batches,
+                      "kernel_vs_plain_f32": err,
+                      "plain_vs_plain_f32": rerun}
 
 
 def main() -> int:
@@ -1095,11 +1308,16 @@ def main() -> int:
     warp = phase_warp(device)
     train_launches, train = phase_train_step(device)
     torch.cuda.empty_cache()
-    cli_launches, train_cli = phase_train_cli(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, train_cli, root, ckpt = phase_train_cli(device, tmp)
+        torch.cuda.empty_cache()
+        saliency_launches, saliency = phase_saliency(device, root, ckpt,
+                                                     tmp)
     require("jax" not in sys.modules, "the port imported jax")
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
-               "train_step": train_launches, "train_cli": cli_launches}
+               "train_step": train_launches, "train_cli": cli_launches,
+               "saliency": saliency_launches}
 
     def launches(name):
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
@@ -1111,7 +1329,9 @@ def main() -> int:
              canny, {"also_replaces": "saunet_tpu/ops/pallas/canny.py:189",
                      "flips": canny["flips"], "shape": canny["shape"],
                      "device_ms": canny["device_ms"],
-                     "large": canny["large"]}),
+                     "large": canny["large"],
+                     "saliency_flips": saliency["k1_flips"],
+                     "saliency_inputs": saliency["k1_inputs"]}),
             ("dense_block", "dense_block.cu",
              "saunet_tpu/ops/pallas/dense_block.py:256", dense,
              {"max_err_over_tol": dense["max_err_over_tol"],
@@ -1141,14 +1361,16 @@ def main() -> int:
     log(f"infer slices/s: kernels {rates['slices_per_s']:.3f}, plain "
         f"{rates['plain_slices_per_s']:.3f}; serving "
         f"{ms_per_slice:.4f} ms/slice; train {train['slices_per_s']:.3f} "
-        f"slices/s; total {time.perf_counter() - t0:.1f} s")
+        f"slices/s; guided SmoothGrad-{SMOOTHGRAD_N} "
+        f"{saliency['maps_per_s']:.4f} maps/s; total "
+        f"{time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"infer": rates, "k4_route": {
         k: k4[k] for k in ("route_ms", "route_slices_per_s", "step_ms",
                            "step_slices_per_s", "route_argmax_agreement",
                            "inputs_ms")},
         "serving_ms_per_slice": ms_per_slice, "train": train,
-        "train_cli": train_cli}))
+        "train_cli": train_cli, "saliency": saliency}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,11 @@
 Load a checkpoint, run the ACDC test set with all z-slices of a volume as
 one batch (padded to a `--z_bucket` multiple), repack the argmax into the
 original 3D geometry (undo crop + nearest resample), save NIfTI volumes,
-and optionally write side-by-side PNGs. `--checkpoint` is a checkpoint of
-the port's train CLI (`state_epoch_<N>.pt`) or a `torch.save`d port
-state_dict (see models/jax_weights.py to bridge JAX weights); both are read
-by `train.checkpoint.restore_params_only`. It runs on the card (`--device
+and optionally write side-by-side PNGs (utils/png.py: no imaging package
+needed). `--checkpoint` is a checkpoint of the port's train CLI
+(`state_epoch_<N>.pt`), a `torch.save`d port state_dict, or a JAX package
+checkpoint (`state_epoch_<N>.msgpack`); all are read by
+`train.checkpoint.restore_params_only`. It runs on the card (`--device
 cuda`, the default; a missing card is an error) unless another device is
 named. The port has one stream layout: `--stream_impl` is accepted and runs
 the same math.
@@ -27,6 +28,7 @@ from ..models import build_unet
 from ..train import InferState, make_infer_step, restore_params_only
 from ..train.state import resolve_device
 from ..utils import AverageMeter
+from ..utils.png import write_png
 
 
 def parse_args(argv=None):
@@ -61,23 +63,18 @@ def parse_args(argv=None):
 
 
 def visualize_result(img2d: np.ndarray, pred2d: np.ndarray, out_path: str):
-    """Side-by-side grayscale image | prediction*85 PNG via PIL."""
-    from PIL import Image
-
+    """Side-by-side grayscale image | prediction*85 PNG."""
     img = img2d.astype(np.float64)
     rng = img.max() - img.min()
     img = ((img - img.min()) / rng * 255.0 if rng > 0
            else np.zeros_like(img)).astype(np.uint8)
     pred = (pred2d * 85).astype(np.uint8)
-    Image.fromarray(np.concatenate([img, pred], axis=1), mode="L").save(
-        out_path)
+    write_png(out_path, np.concatenate([img, pred], axis=1))
 
 
 def save_attention_maps(atts, vol_name: str, z: int, out_dir: str):
     """The decoder attention maps (att2..att5, upsampled) and the three
     shape-stream gate maps as per-slice grayscale PNGs."""
-    from PIL import Image
-
     os.makedirs(out_dir, exist_ok=True)
     names = ["att2", "att3", "att4", "att5", "gate1", "gate2", "gate3"]
     for k, amap in enumerate(atts):
@@ -87,8 +84,8 @@ def save_attention_maps(atts, vol_name: str, z: int, out_dir: str):
         a8 = ((a - lo) / (hi - lo) * 255.0 if hi > lo
               else np.zeros_like(a)).astype(np.uint8)
         for zz in range(z):
-            Image.fromarray(a8[zz], mode="L").save(
-                os.path.join(out_dir, f"{vol_name}_{name}_z{zz}.png"))
+            write_png(os.path.join(out_dir, f"{vol_name}_{name}_z{zz}.png"),
+                      a8[zz])
 
 
 def main(argv=None):

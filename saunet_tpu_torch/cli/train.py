@@ -4,7 +4,9 @@
 The epoch loop: train steps with the augmentation on the device (the warp
 kernel), per-epoch evaluation with the last batch padded and masked,
 per-class IoU, the cosine LR schedule, `BestIoUPolicy` checkpoints
-(`state_epoch_<N>.pt`), `best.json` and `--resume`. It runs on the card
+(`state_epoch_<N>.pt`), `best.json` and `--resume`. `--weights_unet`
+warm-starts the weights from a port checkpoint or state_dict (`.pt`) or a
+JAX package checkpoint (`.msgpack`). It runs on the card
 (`--device cuda`, the default; a missing card is an error) or, when asked,
 on the CPU. The port has one stream layout and one dense-block layout:
 `--stream_impl` and `--encoder_concat` are accepted and run the same math.
@@ -54,7 +56,8 @@ def parse_args(argv=None):
                    help="name identifying the model")
     p.add_argument("--unet_arch", default="saunet")
     p.add_argument("--weights_unet", default="",
-                   help="checkpoint to warm-start weights from")
+                   help="checkpoint to warm-start weights from (.pt, or "
+                        "the JAX package's .msgpack)")
     p.add_argument("--pretrained", default="",
                    help="torchvision densenet121 state_dict (.pth, or .npz "
                         "from tools/convert_torchvision.py) to load into the "

@@ -3,7 +3,9 @@
 Module and child names are the flax tree's (`Conv_0`, `BatchNorm_0`,
 `mrf_up`, `c3x3`, ...), so the weight bridge (models/jax_weights.py) is a
 one-to-one map of names. Parameters stay f32; convs compute in the dtype of
-their input, as flax's `dtype=` does.
+their input, as flax's `dtype=` does. Every ReLU that the JAX modules route
+through their `act` field goes through the module's `act` attribute
+(`F.relu`; interpret/saliency.py's guided model swaps it), and no other.
 """
 from __future__ import annotations
 
@@ -46,11 +48,12 @@ class ConvBNRelu(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel: int = 3):
         super().__init__()
+        self.act = F.relu
         self.Conv_0 = Conv2d(cin, features, kernel)
         self.BatchNorm_0 = BatchNorm2d(features)
 
     def forward(self, x):
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        return self.act(self.BatchNorm_0(self.Conv_0(x)))
 
 
 class SEModule(nn.Module):
@@ -59,12 +62,13 @@ class SEModule(nn.Module):
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
+        self.act = F.relu
         self.fc1 = Conv2d(channels, channels // reduction)
         self.fc2 = Conv2d(channels // reduction, channels)
 
     def forward(self, x):
         s = x.mean(dim=(2, 3), keepdim=True)
-        s = self.fc2(F.relu(self.fc1(s)))
+        s = self.fc2(self.act(self.fc1(s)))
         return x * torch.sigmoid(s)
 
 
@@ -74,12 +78,14 @@ class SpatialAttentionBlock(nn.Module):
 
     def __init__(self, cin: int, attn_features: int):
         super().__init__()
+        self.act = F.relu
         self.down = Conv2d(cin, attn_features, bias=False)
         self.BatchNorm_0 = BatchNorm2d(attn_features)
         self.phi = Conv2d(attn_features, 1)
 
     def forward(self, x):
-        return torch.sigmoid(self.phi(F.relu(self.BatchNorm_0(self.down(x)))))
+        return torch.sigmoid(self.phi(self.act(self.BatchNorm_0(
+            self.down(x)))))
 
 
 class ConvTransposeBNRelu(nn.Module):
@@ -87,11 +93,12 @@ class ConvTransposeBNRelu(nn.Module):
 
     def __init__(self, cin: int, features: int):
         super().__init__()
+        self.act = F.relu
         self.ConvTranspose_0 = ConvTranspose2d(cin, features)
         self.BatchNorm_0 = BatchNorm2d(features)
 
     def forward(self, x):
-        return F.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+        return self.act(self.BatchNorm_0(self.ConvTranspose_0(x)))
 
 
 class DualAttBlock(nn.Module):
@@ -101,6 +108,7 @@ class DualAttBlock(nn.Module):
     def __init__(self, coarse_channels: int, skip_channels: int,
                  outchannels: int):
         super().__init__()
+        self.act = F.relu
         self.mrf_up = ConvTransposeBNRelu(coarse_channels, coarse_channels)
         self.c3x3 = Conv2d(skip_channels + coarse_channels, outchannels, 3)
         self.BatchNorm_0 = BatchNorm2d(outchannels)
@@ -110,7 +118,7 @@ class DualAttBlock(nn.Module):
 
     def forward(self, coarse, skip):
         fused = torch.cat([skip, self.mrf_up(coarse)], dim=1)
-        fused = F.relu(self.BatchNorm_0(self.c3x3(fused)))
+        fused = self.act(self.BatchNorm_0(self.c3x3(fused)))
         spatial = self.spatialAttn(fused)
         channel = self.channelAttn(fused)
         return channel * (spatial + 1.0), spatial
@@ -122,15 +130,16 @@ class ResBasicBlock(nn.Module):
 
     def __init__(self, planes: int):
         super().__init__()
+        self.act = F.relu
         self.conv1 = Conv2d(planes, planes, 3, bias=False)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, bias=False)
         self.bn2 = BatchNorm2d(planes)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.act(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
-        return F.relu(out + x)
+        return self.act(out + x)
 
 
 class GatedSpatialConv(nn.Module):
@@ -140,6 +149,7 @@ class GatedSpatialConv(nn.Module):
 
     def __init__(self, cin: int, features: int):
         super().__init__()
+        self.act = F.relu
         self.gate_bn1 = BatchNorm2d(cin + 1)
         self.gate_conv1 = Conv2d(cin + 1, cin + 1)
         self.gate_conv2 = Conv2d(cin + 1, 1)
@@ -148,7 +158,7 @@ class GatedSpatialConv(nn.Module):
 
     def forward(self, input_features, gating_features):
         cat = torch.cat([input_features, gating_features], dim=1)
-        g = F.relu(self.gate_conv1(self.gate_bn1(cat)))
+        g = self.act(self.gate_conv1(self.gate_bn1(cat)))
         alpha = torch.sigmoid(self.gate_bn2(self.gate_conv2(g)))
         return self.conv(input_features * (alpha + 1.0)), alpha
 

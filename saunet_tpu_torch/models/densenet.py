@@ -37,6 +37,7 @@ class DenseLayer(nn.Module):
 
     def __init__(self, cin: int):
         super().__init__()
+        self.act = F.relu
         hidden = BN_SIZE * GROWTH_RATE
         self.norm1 = BatchNorm2d(cin)
         self.conv1 = Conv2d(cin, hidden, bias=False)
@@ -44,8 +45,8 @@ class DenseLayer(nn.Module):
         self.conv2 = Conv2d(hidden, GROWTH_RATE, 3, bias=False)
 
     def forward(self, x):
-        h = self.conv1(F.relu(self.norm1(x)))
-        return self.conv2(F.relu(self.norm2(h)))
+        h = self.conv1(self.act(self.norm1(x)))
+        return self.conv2(self.act(self.norm2(h)))
 
 
 class DenseBlock(nn.Module):
@@ -68,11 +69,12 @@ class Transition(nn.Module):
 
     def __init__(self, cin: int, out_features: int):
         super().__init__()
+        self.act = F.relu
         self.norm = BatchNorm2d(cin)
         self.conv = Conv2d(cin, out_features, bias=False)
 
     def forward(self, x):
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2)
+        return F.avg_pool2d(self.conv(self.act(self.norm(x))), 2)
 
 
 class DenseNetEncoder(nn.Module):

@@ -12,8 +12,9 @@ flax path `a/b/c/<leaf>` is port key `a.b.c.<field>`.
   BN batch_stats mean / var         -> running_mean / running_var (plus
                                        num_batches_tracked = 0)
 
-Input leaves are numpy arrays (or anything `np.asarray` takes). Reading the
-JAX package's .msgpack checkpoints is left to a later change.
+Input leaves are numpy arrays (or anything `np.asarray` takes). A JAX
+package checkpoint (`.msgpack`) gives such a tree through
+`train.checkpoint.load_jax_variables`.
 """
 from __future__ import annotations
 

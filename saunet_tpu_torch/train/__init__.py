@@ -1,5 +1,6 @@
 from .checkpoint import (
     BestIoUPolicy,
+    load_jax_variables,
     restore_checkpoint,
     restore_params_only,
     save_checkpoint,
@@ -19,6 +20,6 @@ from .state import (
 __all__ = ["BestIoUPolicy", "DEFAULT_CLASS_WEIGHTS", "InferState",
            "TrainState", "cosine_epoch_schedule", "create_optimizer",
            "create_train_state", "dual_loss", "intersection_and_union",
-           "make_eval_step", "make_infer_step", "make_train_step",
-           "pixel_acc", "radam", "restore_checkpoint", "restore_params_only",
-           "save_checkpoint"]
+           "load_jax_variables", "make_eval_step", "make_infer_step",
+           "make_train_step", "pixel_acc", "radam", "restore_checkpoint",
+           "restore_params_only", "save_checkpoint"]

@@ -3,11 +3,12 @@
 `save_checkpoint` writes the whole train state, `state_<tag>.pt` (model
 state_dict, optimizer state_dict, step, history), plus `history_<tag>.json`,
 so `restore_checkpoint` resumes exactly. `restore_params_only` takes the
-model weights alone from such a file or from a bare `torch.save`d model
-state_dict: the reference's `--weights_unet` warm start, and what
-`test_and_pack --checkpoint` reads. Reading the JAX package's `.msgpack`
-checkpoints is not ported yet. `BestIoUPolicy` is the reference's rule for
-when to save.
+model weights alone from such a file, from a bare `torch.save`d model
+state_dict, or from a JAX package checkpoint (`state_<tag>.msgpack`, read
+by `load_jax_variables` without flax): the reference's `--weights_unet`
+warm start, and what `test_and_pack --checkpoint` and `saliency
+--checkpoint` read. A full resume from a JAX checkpoint's optimizer state
+is not ported. `BestIoUPolicy` is the reference's rule for when to save.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.jax_weights import from_jax_variables
+from ..utils import msgpack
 from .state import TrainState
 
 
@@ -39,9 +42,38 @@ def _load(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _is_jax_checkpoint(path: str) -> bool:
+    return path.endswith(".msgpack")
+
+
+def load_jax_variables(path: str) -> Dict[str, dict]:
+    """{'params', 'batch_stats'} of a JAX package checkpoint (flax's
+    msgpack of its TrainState), as nested dicts of numpy arrays, copied out
+    of the file's buffer (bfloat16 leaves widened to float32); the
+    checkpoint's `opt_state` and `step` are skipped."""
+    raw = msgpack.load(path)
+    if not isinstance(raw, dict) or not {"params", "batch_stats"} <= set(raw):
+        raise KeyError(f"{path}: not a JAX train-state checkpoint (no "
+                       f"params and batch_stats)")
+
+    def copy(tree):
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            return tree.float().numpy()
+        return np.array(tree)
+
+    return {k: copy(raw[k]) for k in ("params", "batch_stats")}
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load the model, optimizer and step of `path` into `state`; returns
-    it."""
+    it. A JAX checkpoint raises: its optimizer state is optax's."""
+    if _is_jax_checkpoint(path):
+        raise NotImplementedError(
+            f"{path}: resuming from a JAX checkpoint's optimizer state is "
+            f"not ported; warm-start its weights with restore_params_only "
+            f"(--weights_unet)")
     ckpt = _load(path)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
@@ -52,7 +84,11 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 
 def restore_params_only(path: str, model: nn.Module) -> nn.Module:
     """Load only the weights (parameters and BN statistics) of a train
-    checkpoint, or of a bare model state_dict, into `model`; returns it."""
+    checkpoint, of a bare model state_dict, or of a JAX package checkpoint
+    (a `.msgpack` file) into `model`; returns it."""
+    if _is_jax_checkpoint(path):
+        model.load_state_dict(from_jax_variables(load_jax_variables(path)))
+        return model
     ckpt = _load(path)
     is_train_state = (set(ckpt) == {"model", "optimizer", "step", "history"}
                       and isinstance(ckpt["model"], dict))

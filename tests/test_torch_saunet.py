@@ -126,8 +126,9 @@ def test_infer_step_matches_jax(stream_impl, variables, images,
 
 
 def test_port_never_imports_jax():
-    """Importing the package and every one of its modules leaves jax out
-    of sys.modules."""
+    """Importing the package and every one of its modules leaves jax (and
+    flax's msgpack, and PIL, which the card machine lacks) out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import saunet_tpu_torch as pkg\n"
@@ -137,7 +138,8 @@ def test_port_never_imports_jax():
         "    importlib.import_module(n)\n"
         "assert len(names) > 20, names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'optax', 'saunet_tpu'))\n"
+        " ('jax', 'jaxlib', 'flax', 'optax', 'saunet_tpu', 'msgpack',"
+        " 'PIL'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -1,8 +1,9 @@
 """The port's train CLI (saunet_tpu_torch.cli.train) end to end on
 synthetic ACDC volumes, on the pattern of tests/test_cli_integration.py:
 one epoch at crop 32 on the CPU, `--resume` from its checkpoint, and the
-checkpoint served by `test_and_pack`. Also: both CLIs default to the
-card and refuse to run without one. Port only: no jax."""
+checkpoint served by `test_and_pack`. Also: the CLIs (train,
+test_and_pack, saliency) default to the card and refuse to run without
+one. Port only: no jax."""
 import json
 import os
 import shutil
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from saunet_tpu_torch.cli.test_and_pack import main as pack_main
+from saunet_tpu_torch.cli.saliency import main as saliency_main
 from saunet_tpu_torch.cli.train import main as train_main
 from saunet_tpu_torch.cli.train import parse_args
 from saunet_tpu_torch.data import nifti
@@ -97,7 +99,7 @@ def test_train_resume_and_serve(tmp_path, capsys):
     assert set(np.unique(pred)) <= {0, 1, 2, 3}
 
 
-@pytest.mark.parametrize("cli", ["train", "test_and_pack"])
+@pytest.mark.parametrize("cli", ["train", "test_and_pack", "saliency"])
 def test_clis_default_to_the_card(tmp_path, cli):
     """No --device: the CLIs take the card, and without one they raise
     instead of running on the CPU."""
@@ -109,6 +111,10 @@ def test_clis_default_to_the_card(tmp_path, cli):
         argv = ["--data-root", root, "--ckpt", str(tmp_path / "c"),
                 "--num_epoch", "1", "--crop_size", "32"]
         run = train_main
+    elif cli == "saliency":
+        argv = ["--checkpoint", str(tmp_path / "m.pt"), "--data-root", root,
+                "--crop_size", "32", "--out", str(tmp_path / "s")]
+        run = saliency_main
     else:
         model_path = str(tmp_path / "m.pt")
         torch.save({}, model_path)

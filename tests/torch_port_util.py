@@ -125,6 +125,18 @@ def golden_variables(jax_model) -> dict:
     return variables
 
 
+def golden_variables_like(port_model) -> dict:
+    """`golden_variables` without tracing the JAX model: the port's modules
+    carry the flax names, so `to_jax_variables(port_model)` is the same
+    tree, and `fill_variables` fills it in the same order (about 1 s where
+    the JAX init's eval_shape takes 5). `write_saliency_golden` checks that
+    the two agree."""
+    variables = fill_variables(to_jax_variables(port_model), seed=GOLDEN_SEED)
+    fuse = variables["params"]["fuse"]
+    fuse["kernel"] = fuse["kernel"] * np.float32(0.05)
+    return variables
+
+
 def golden_batch() -> dict:
     """The golden step's batch: numpy image (N, H, W, 3), int32 label
     (N, H, W) over 4 classes and a {0, 1} edge target (N, H, W, 1)."""
@@ -185,6 +197,75 @@ def write_train_step_golden(path: str = GOLDEN_TRAIN_STEP) -> None:
         if not fix_bn:
             for k, v in flat_leaves(new.batch_stats).items():
                 out[f"batch_stats/{k}"] = v
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **out)
+
+
+GOLDEN_SALIENCY = os.path.join(os.path.dirname(__file__), "torch_golden",
+                               "saliency_32.npz")
+SALIENCY_SEED, SALIENCY_N, SALIENCY_BATCH = 2, 4, 2
+
+
+def saliency_inputs():
+    """The saliency golden's image, a phantom slice normalised as the
+    CLIs do, numpy (GOLDEN_SIZE, GOLDEN_SIZE, 3) f32, and its int32
+    label mask as the target."""
+    from saunet_tpu_torch.data import make_phantom_set
+
+    imgs, labels = make_phantom_set(1, hw=GOLDEN_SIZE, seed=SALIENCY_SEED)
+    img = imgs[0]
+    img = (img - img.mean()) / (img.std() + 1e-10)
+    return np.repeat(img[..., None], 3, axis=-1), labels[0]
+
+
+def write_saliency_golden(path: str = GOLDEN_SALIENCY) -> None:
+    """Run the JAX package's vanilla and guided gradients and SmoothGrad
+    (vanilla, PRNGKey(0), n=SALIENCY_N, batch SALIENCY_BATCH) of an f32
+    SAUNet (XLA Canny) with `golden_variables` on `saliency_inputs`, and
+    store them with the noisy images SmoothGrad drew, for
+    tests/test_torch_saliency.py. A minute or two of XLA compile, so it
+    runs once, by hand:
+
+        JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
+            import torch_port_util as u; u.write_saliency_golden()"
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from saunet_tpu.interpret import (
+        guided_gradients,
+        smooth_grad,
+        vanilla_gradients,
+    )
+    from saunet_tpu.models import build_unet
+
+    from saunet_tpu_torch.models import build_unet as build_unet_port
+
+    model = build_unet(dtype="float32", stream_impl="xla", edge_kernel="xla")
+    variables = golden_variables(model)
+    like = flat_leaves(golden_variables_like(build_unet_port()))
+    want = flat_leaves(variables)
+    assert sorted(like) == sorted(want) and all(
+        np.array_equal(like[k], want[k]) for k in want)
+    image_np, target_np = saliency_inputs()
+    image, target = jnp.asarray(image_np), jnp.asarray(target_np)
+    key = jax.random.PRNGKey(0)
+
+    def vanilla(img):
+        return vanilla_gradients(model, variables, img, target)
+
+    # the noisy copies smooth_grad draws: one key a copy from split(key, n)
+    std = (4.0 / (float(jnp.max(image)) - float(jnp.min(image)))) ** 2
+    noisy = [image + jax.random.normal(k, image.shape, image.dtype) * std
+             for k in jax.random.split(key, SALIENCY_N)]
+    out = {"image": image_np, "target": target_np,
+           "vanilla": np.asarray(vanilla(image)),
+           "guided": np.asarray(guided_gradients(model, variables, image,
+                                                 target)),
+           "smooth_grad": np.asarray(smooth_grad(
+               vanilla, key, image, n=SALIENCY_N,
+               batch_size=SALIENCY_BATCH)),
+           "noisy": np.stack([np.asarray(x) for x in noisy])}
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **out)
 
