@@ -80,6 +80,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      beside it; and the f32 map with the Canny kernel within
      1e-3*max|ref| of the map with the plain Canny (TF32 off), beside
      how far two runs of the plain route differ.
+  10. data parallel, ranks spawned by package code (parallel.launch), each
+     asserting it never imported jax: two ranks of the full-width bf16
+     SAUNet at 224^2, global batch 64 (2 x 32), sharing the card over gloo
+     (NCCL over two cards where there are two). Each rank's eval batch
+     first (1 Canny and 4 dense-block launches a rank; IoU counts summed
+     over the ranks equal to the one-process eval of the same rows), then
+     the global-batch step with augmentation from the same weights and
+     generator state as a one-process `make_train_step` on the global
+     batch: loss parts within the CPU golden test's rtol 1e-4, synced
+     running statistics equal on both ranks and close to the one-process
+     step's, the parameters within 0.1 of the largest update of the
+     one-process step's; counters zeroed just before the step and read
+     just after: 1 warp and 1 Canny a rank, no dense block. Every K1, K5
+     and K3 call of the ranks' eval and step is recorded and held against
+     the plain version on the same inputs (and again on the first 4 rows,
+     the train CLI's per-rank batch): K1 exact, K5 and K3 at phases 6 and
+     3's tolerances. Step ms, gradient all-reduce ms (host window of the
+     DDP buckets) and peak memory per rank; two ranks on one card
+     over gloo measure correctness, not scaling. Then `cli.train` under
+     torchrun on 2 ranks (2 x 4), one epoch at crop 224 on phase 8's
+     volumes: per-class IoU printed once, one checkpoint and best.json,
+     served by test_and_pack. Then one rank on NCCL: the mesh step (DDP,
+     synced BatchNorm) against the plain step in turns at b32, and the
+     NCCL kernels' device time; its K1 and K5 calls held against the plain
+     versions as above.
 Then a {"kernels": [...]} line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type,
 H100 SXM data sheet) and, last, the {"ok": true, "device": ...} line.
@@ -1268,6 +1293,371 @@ def phase_saliency(device, root, ckpt, tmp):
                       "plain_vs_plain_f32": rerun}
 
 
+DDP_RANKS = 2
+# the CPU golden test's tolerance on the loss parts (tests/test_torch_*)
+DDP_LOSS_RTOL = 1e-4
+# synced running statistics against the one-process step's: both are 0.9
+# of the same start plus 0.1 of batch statistics of bf16 activations,
+# which the two routes compute with other algorithms and sum orders
+DDP_STATS_RTOL, DDP_STATS_ATOL = 1e-2, 1e-3
+# the ranks' largest update difference from the one-process step, as a
+# fraction of the largest update: two runs of the one-process step differ
+# by ~5e-3, a gradient off by a factor of 2 (a missing 1/world, SUM for
+# AVG) moves RAdam's first, unadapted update by ~1
+DDP_UPDATE_GAP_MAX = 0.1
+_PARITY_NAMES = {"canny_edges_cuda": "canny", "dense_block": "dense_block",
+                 "warp_image_label": "warp", "gather_image": "gather",
+                 "shape_stream_fused": "shape_stream"}
+
+
+def _by_kernel(counts: dict) -> dict:
+    return {_PARITY_NAMES[k]: v for k, v in counts.items()}
+
+
+def _ddp_kernel_parity(runs) -> dict:
+    """Every K1, K5 and K3 result that ranks recorded on their eval batch
+    and train step (`parity.timed_case`; `runs`: [(label, result)]), and
+    the kernel again on the first rows of each input, against the plain
+    version on the same inputs: K1 exact (0 flips, as in phase 9), K5
+    within 1e-6 max|ref| with exact labels (phase 6), K3 within 0.05
+    max|ref| with the median below a tenth of that (phase 3). Each rank
+    must have recorded as many calls as its counters read. Returns, a
+    kernel, the shapes, calls and worst errors."""
+    calls = {"canny": [], "warp": [], "dense_block": []}
+    for label, x in runs:
+        parts = [("eval", x["eval"])] if "eval" in x else []
+        for part, got in parts + [("train step", x)]:
+            launched = _by_kernel(got["launches"])
+            for name in calls:
+                n = len(got["parity"][name])
+                require(n == launched[name],
+                        f"{label} {part}: {n} {name} calls recorded, "
+                        f"{launched[name]} launched")
+                calls[name] += got["parity"][name] + got["parity_rows"][name]
+    out = {}
+    for name, checked in calls.items():
+        shapes = sorted({tuple(c["shape"]) for c in checked})
+        if name == "canny":
+            flips = sum(c["flips"] for c in checked)
+            require(flips == 0, f"K1 on the ranks: {flips} flips against "
+                                f"the plain Canny")
+            worst = {"max_abs_err": 255.0 * (flips > 0), "flips": flips}
+        elif name == "warp":
+            require(all(c["max_abs_err"] <= 1e-6 * c["scale"]
+                        and c["label_mismatches"] == 0 for c in checked),
+                    f"K5 on the ranks disagrees with the plain warp: "
+                    f"{checked}")
+            worst = {"max_abs_err": max(c["max_abs_err"] for c in checked),
+                     "label_mismatches": sum(c["label_mismatches"]
+                                             for c in checked)}
+        else:
+            require(all(c["max_abs_err"] <= 0.05 * c["scale"]
+                        and c["median_abs_err"] < 0.005 * c["scale"]
+                        for c in checked),
+                    f"K3 on the ranks disagrees with the plain dense "
+                    f"block: {checked}")
+            worst = {"max_abs_err": max(c["max_abs_err"] for c in checked),
+                     "max_err_over_tol": max(c["max_abs_err"]
+                                             / (0.05 * c["scale"])
+                                             for c in checked)}
+        out[name] = {"calls": len(checked),
+                     "shapes": [list(x) for x in shapes], **worst}
+        log(f"{name} on the ranks against its plain version: "
+            f"{out[name]}")
+    return out
+
+
+def _update_gap(new, ref, start) -> float:
+    """max |new - ref| over the parameters, as a fraction of the largest
+    update of `ref` from `start`."""
+    scale = max(float((ref[k] - start[k]).abs().max()) for k in ref)
+    return max(float((new[k] - ref[k]).abs().max()) for k in ref) / scale
+
+
+def _ddp_reference(device, wpath, batch, eval_batch, per_rank):
+    """The one-process eval (of each rank's rows, and of the whole batch)
+    and train step from the weights in `wpath`, on the card."""
+    import torch
+
+    from saunet_tpu_torch.data import make_augment_fn
+    from saunet_tpu_torch.parallel.parity import (
+        bn_buffers,
+        build_model,
+        iou_counts,
+    )
+    from saunet_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+        radam,
+    )
+
+    model = build_model(wpath, "bfloat16")
+    tx = radam(1e-4)
+    state = create_train_state(model, tx, device)
+    eval_step = make_eval_step(model)
+
+    def run_eval(rows):
+        b = {k: torch.from_numpy(v[rows]).to(device)
+             for k, v in eval_batch.items()}
+        _, preds, metrics = eval_step(state, b)
+        return preds.cpu().numpy(), {k: float(v) for k, v in metrics.items()
+                                     if v.dim() == 0}
+
+    inter = union = 0
+    for r in range(DDP_RANKS):
+        rows = slice(r * per_rank, (r + 1) * per_rank)
+        preds, _ = run_eval(rows)
+        i_, u_ = iou_counts(preds, eval_batch["label"][rows],
+                            eval_batch["valid"][rows])
+        inter, union = inter + i_, union + u_
+    whole_preds, whole_metrics = run_eval(slice(None))
+    step = make_train_step(model, tx, augment_fn=make_augment_fn())
+    dgen = torch.Generator(device=device).manual_seed(8)
+    state, metrics = step(state, {k: torch.from_numpy(v).to(device)
+                                  for k, v in batch.items()}, dgen)
+    torch.cuda.synchronize()
+    ref = {"inter": inter, "union": union, "whole_preds": whole_preds,
+           "whole_metrics": whole_metrics,
+           "metrics": {k: float(metrics[k])
+                       for k in ("loss", "ce", "dice", "edge")},
+           "buffers": bn_buffers(model),
+           "params": {k: v.detach().cpu()
+                      for k, v in model.named_parameters()}}
+    del model, state, step, eval_step
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_data_parallel(device, tmp, root):
+    """Phase 10: the data-parallel step, eval and train CLI on ranks."""
+    import numpy as np
+    import torch
+
+    from saunet_tpu_torch.data import edge_ground_truth, normalize_for_eval
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.models.init import init_random_
+    from saunet_tpu_torch.parallel.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    per_rank = BATCH // DDP_RANKS
+    log(f"data parallel: {DDP_RANKS} ranks x {per_rank} slices at {SIZE}^2 "
+        f"bf16 on {cards} card(s); "
+        + ("both ranks share one card over gloo: this measures "
+           "correctness, not scaling (gloo stages every all-reduce "
+           "through the host)" if cards < DDP_RANKS else
+           "NCCL, a card a rank"))
+    model = init_random_(build_unet(dtype="bfloat16"),
+                         torch.Generator().manual_seed(11))
+    wpath = os.path.join(tmp, "ddp_weights.pt")
+    torch.save(model.state_dict(), wpath)
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    del model
+    img, lab = synthetic_labelled(BATCH, SIZE, SIZE,
+                                  torch.Generator().manual_seed(12), "cpu")
+    batch = {"image": img.numpy(), "label": lab.numpy()}
+    eimg, elab = synthetic_labelled(BATCH, SIZE, SIZE,
+                                    torch.Generator().manual_seed(13), "cpu")
+    n_real = BATCH - 4  # a padded last validation batch
+    eval_batch = {"image": normalize_for_eval(eimg).numpy(),
+                  "label": elab.numpy(),
+                  "edge": edge_ground_truth(elab).numpy(),
+                  "valid": (np.arange(BATCH) < n_real).astype(np.float32)}
+
+    ref = _ddp_reference(device, wpath, batch, eval_batch, per_rank)
+    # the one-process step against itself: its backward's atomics sum in
+    # another order from run to run
+    again = _ddp_reference(device, wpath, batch, eval_batch, per_rank)
+    spread = _update_gap(again["params"], ref["params"], start)
+    log(f"one-process step run twice: loss parts "
+        f"{'equal' if again['metrics'] == ref['metrics'] else 'differ'}, "
+        f"largest update difference {spread:.4e} of the largest update")
+    del again
+    t0 = time.perf_counter()
+    res = run_ranks(DDP_RANKS, "saunet_tpu_torch.parallel.parity:timed_case",
+                    dict(weights=wpath, batch=batch, eval_batch=eval_batch,
+                         augment_seed=8, timed_steps=3),
+                    device=device.type, timeout=500)
+    log(f"ranks ran in {time.perf_counter() - t0:.3f} s, backend "
+        f"{res[0]['backend']}, devices {[r['device'] for r in res]}")
+
+    # eval: launches, IoU counts, masked loss
+    for r, x in enumerate(res):
+        got = _by_kernel(x["eval"]["launches"])
+        log(f"rank {r} eval launches: {got}")
+        require(got == {"canny": 1, "dense_block": 4, "warp": 0,
+                        "gather": 0, "shape_stream": 0},
+                f"rank {r} eval did not run each kernel as expected")
+    inter = sum(x["eval"]["inter"] for x in res)
+    union = sum(x["eval"]["union"] for x in res)
+    log(f"eval IoU counts, ranks: inter {inter.tolist()} union "
+        f"{union.tolist()}; one process: inter {ref['inter'].tolist()} "
+        f"union {ref['union'].tolist()}")
+    require(np.array_equal(inter, ref["inter"])
+            and np.array_equal(union, ref["union"]),
+            "the ranks' IoU counts differ from the one-process eval's")
+    preds = np.concatenate([x["eval"]["preds"] for x in res])
+    whole_agree = float((preds == ref["whole_preds"]).mean())
+    eval_loss = float(res[0]["eval"]["metrics"]["loss"])
+    log(f"eval masked loss: ranks {eval_loss}, one process (whole batch) "
+        f"{ref['whole_metrics']['loss']}; preds agree with the whole-batch "
+        f"eval on {whole_agree:.6f} of pixels")
+
+    # train step: launches, loss parts, statistics, update
+    for r, x in enumerate(res):
+        got = _by_kernel(x["launches"])
+        log(f"rank {r} train step launches: {got}")
+        require(got == {"canny": 1, "dense_block": 0, "warp": 1,
+                        "gather": 0, "shape_stream": 0},
+                f"rank {r} train step did not run each kernel as expected")
+    parts = {k: float(res[0]["metrics"][k])
+             for k in ("loss", "ce", "dice", "edge")}
+    rel = {k: abs(parts[k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+           for k in parts}
+    log(f"loss parts, ranks {parts}; one process {ref['metrics']}; "
+        f"relative difference {rel}")
+    require(all(v <= DDP_LOSS_RTOL for v in rel.values()),
+            f"loss parts differ from the one-process step by more than "
+            f"rtol {DDP_LOSS_RTOL}")
+    for k in parts:
+        require(float(res[1]["metrics"][k]) == parts[k],
+                f"{k} differs between the ranks")
+    b0, b1 = res[0]["buffers"], res[1]["buffers"]
+    require(all(torch.equal(b0[k], b1[k]) for k in b0),
+            "running statistics differ between the ranks")
+    require(torch.equal(res[0]["digest"], res[1]["digest"]),
+            "parameters differ between the ranks")
+    stats_err = max(float(((b0[k] - ref["buffers"][k]).abs()
+                           - DDP_STATS_RTOL * ref["buffers"][k].abs())
+                          .max()) for k in b0)
+    stats_rel = max(float((b0[k] - ref["buffers"][k]).abs().max()
+                          / ref["buffers"][k].abs().max()) for k in b0)
+    log(f"running statistics: equal on both ranks; largest difference "
+        f"from the one-process step {stats_rel:.3e} of its layer's "
+        f"largest")
+    require(stats_err <= DDP_STATS_ATOL,
+            f"running statistics differ from the one-process step beyond "
+            f"rtol {DDP_STATS_RTOL} atol {DDP_STATS_ATOL}")
+    update_gap = _update_gap(res[0]["params"], ref["params"], start)
+    log(f"largest update difference, ranks vs one process: "
+        f"{update_gap:.4e} of the largest update (one process against "
+        f"itself: {spread:.4e}; limit {DDP_UPDATE_GAP_MAX})")
+    require(update_gap <= DDP_UPDATE_GAP_MAX,
+            f"the ranks' update differs from the one-process step's by "
+            f"{update_gap:.4e} of the largest update")
+
+    ranks = []
+    for r, x in enumerate(res):
+        step_ms = statistics.median(x["step_ms"])
+        ar_ms = statistics.median(x["allreduce_window_ms"])
+        log(f"rank {r}: step {step_ms:.3f} ms median of "
+            f"{len(x['step_ms'])} {x['step_ms']}, gradient all-reduce "
+            f"window {ar_ms:.3f} ms a step over {x['buckets']} buckets "
+            f"({x['allreduce_window_ms']}), peak memory "
+            f"{x['peak_memory_bytes'] / 2**30:.3f} GiB")
+        ranks.append({"step_ms": step_ms, "steps_ms": x["step_ms"],
+                      "allreduce_window_ms": ar_ms,
+                      "buckets": x["buckets"],
+                      "peak_memory_bytes": x["peak_memory_bytes"]})
+    ddp_launches = {k: sum(_by_kernel(x["launches"])[k]
+                           + _by_kernel(x["eval"]["launches"])[k]
+                           for x in res)
+                    for k in _PARITY_NAMES.values()}
+
+    cli = _ddp_train_cli(device, tmp, root)
+    one = run_ranks(1, "saunet_tpu_torch.parallel.parity:timed_case",
+                    dict(weights=wpath,
+                         batch={k: v[:per_rank] for k, v in batch.items()},
+                         augment_seed=8, timed_steps=3, plain_turns=4),
+                    device=device.type, timeout=300)[0]
+    require(one["backend"] == "nccl", f"one rank ran on {one['backend']}")
+    parity = _ddp_kernel_parity([(f"rank {r}", x) for r, x in enumerate(res)]
+                                + [("the NCCL rank", one)])
+    turn = {k: statistics.median(v) for k, v in one["turns_ms"].items()}
+    log(f"one rank on NCCL, b{per_rank}, in turns {one['turns_ms']}: mesh "
+        f"step {turn['mesh']:.3f} ms, the plain step with synced BatchNorm "
+        f"{turn['synced']:.3f} ms, the plain step {turn['plain']:.3f} ms: "
+        f"synced BatchNorm (plain tensor ops, an all-reduce a layer) "
+        f"{turn['synced'] - turn['plain']:.3f} ms, DDP's own cost "
+        f"{turn['mesh'] - turn['synced']:.3f} ms; NCCL kernels "
+        f"{one['nccl_device_ms']:.4f} ms of device time a step")
+    return ddp_launches, {
+        "ranks": DDP_RANKS, "per_rank": per_rank, "cards": cards,
+        "backend": res[0]["backend"], "kernel_parity": parity,
+        "loss_parts": parts,
+        "loss_rel_diff": rel, "stats_rel_diff": stats_rel,
+        "update_rel_diff": update_gap,
+        "update_rel_diff_one_process_rerun": spread,
+        "eval_iou_inter": inter.tolist(),
+        "eval_iou_union": union.tolist(), "eval_loss": eval_loss,
+        "eval_loss_one_process": ref["whole_metrics"]["loss"],
+        "eval_whole_batch_agreement": whole_agree, "per_rank_timing": ranks,
+        "train_cli": cli,
+        "one_rank_nccl": {"median_ms": turn,
+                          "synced_bn_cost_ms": turn["synced"] - turn["plain"],
+                          "ddp_cost_ms": turn["mesh"] - turn["synced"],
+                          "turns_ms": one["turns_ms"],
+                          "nccl_device_ms": one["nccl_device_ms"],
+                          "step_ms": one["step_ms"],
+                          "peak_memory_bytes": one["peak_memory_bytes"]}}
+
+
+def _ddp_train_cli(device, tmp, root):
+    """`cli.train` under torchrun on DDP_RANKS ranks, one epoch at crop
+    224 on phase 8's volumes; its checkpoint served by test_and_pack."""
+    import numpy as np
+
+    from saunet_tpu_torch.cli.test_and_pack import main as pack_main
+    from saunet_tpu_torch.data import nifti
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(tmp, "ckpt_ddp")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DDP_RANKS), "-m",
+           "saunet_tpu_torch.cli.train", "--data-root", root, "--ckpt", ckpt,
+           "--num_epoch", "1", "--batch_size_per_device", "4",
+           "--crop_size", str(SIZE), "--id", "smoke_ddp",
+           "--device", device.type]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=500,
+                          env=env, cwd=here)
+    seconds = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ddp_train_cli.log"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    require(proc.returncode == 0,
+            f"torchrun cli.train failed ({proc.returncode}): "
+            f"{proc.stderr[-3000:]}")
+    ious = [line for line in proc.stdout.splitlines()
+            if line.startswith("class [")]
+    log("\n".join(ious))
+    require(len(ious) == 3, f"per-class IoU printed {len(ious)} times, "
+                            f"not once for each of 3 classes")
+    runs = os.listdir(ckpt)
+    require(len(runs) == 1 and f"-ndev{DDP_RANKS}-batchSize8-" in runs[0],
+            f"torchrun cli.train wrote runs {runs}")
+    run = os.path.join(ckpt, runs[0])
+    files = sorted(os.listdir(run))
+    require(files == ["best.json", "history_epoch_1.json",
+                      "state_epoch_1.pt"], f"torchrun cli.train wrote {files}")
+    log(f"torchrun cli.train: {DDP_RANKS} ranks, one epoch in "
+        f"{seconds:.3f} s; {runs[0]}: {files}")
+    out_dir, res = os.path.join(tmp, "out_ddp"), os.path.join(tmp, "res_ddp")
+    pack_main(["--id", "smoke_ddp", "--checkpoint",
+               os.path.join(run, "state_epoch_1.pt"), "--data-root", root,
+               "--crop_size", str(SIZE), "--save_test_path", out_dir,
+               "--result", res, "--device", str(device)])
+    pred = nifti.load(os.path.join(out_dir, "patient101_ED.nii.gz")).data
+    require(set(np.unique(pred)) <= {0, 1, 2, 3}, "served labels")
+    log(f"served the torchrun checkpoint: {pred.shape}, labels "
+        f"{sorted(np.unique(pred).tolist())}")
+    return {"seconds": seconds, "run": runs[0], "files": files,
+            "served_shape": list(pred.shape)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1313,11 +1703,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         saliency_launches, saliency = phase_saliency(device, root, ckpt,
                                                      tmp)
+        torch.cuda.empty_cache()
+        ddp_launches, ddp = phase_data_parallel(device, tmp, root)
     require("jax" not in sys.modules, "the port imported jax")
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
                "train_step": train_launches, "train_cli": cli_launches,
-               "saliency": saliency_launches}
+               "saliency": saliency_launches, "ddp": ddp_launches}
 
     def launches(name):
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
@@ -1331,12 +1723,14 @@ def main() -> int:
                      "device_ms": canny["device_ms"],
                      "large": canny["large"],
                      "saliency_flips": saliency["k1_flips"],
-                     "saliency_inputs": saliency["k1_inputs"]}),
+                     "saliency_inputs": saliency["k1_inputs"],
+                     "ddp": ddp["kernel_parity"]["canny"]}),
             ("dense_block", "dense_block.cu",
              "saunet_tpu/ops/pallas/dense_block.py:256", dense,
              {"max_err_over_tol": dense["max_err_over_tol"],
               "shape": f"4 DenseNet-121 blocks, {BATCH} slices at "
-                       f"{SIZE}^2", "blocks": dense["blocks"]}),
+                       f"{SIZE}^2", "blocks": dense["blocks"],
+              "ddp": ddp["kernel_parity"]["dense_block"]}),
             ("shape_stream", "shape_stream.cu",
              "saunet_tpu/ops/pallas/shape_stream.py:290", k4,
              {"shape": [BATCH, SIZE, SIZE, 67],
@@ -1347,7 +1741,8 @@ def main() -> int:
             ("warp", "warp.cu", "tools/exp_gather.py:166", warp,
              {"shape": [BATCH, SIZE, SIZE], "device_ms": warp["device_ms"],
               "library_device_ms": warp["library_device_ms"],
-              "gather": warp["gather"]})):
+              "gather": warp["gather"],
+              "ddp": ddp["kernel_parity"]["warp"]})):
         total, counts = launches(name)
         require(total > 0, f"{name} was not launched on the main paths")
         kernels.append({
@@ -1370,7 +1765,8 @@ def main() -> int:
                            "step_slices_per_s", "route_argmax_agreement",
                            "inputs_ms")},
         "serving_ms_per_slice": ms_per_slice, "train": train,
-        "train_cli": train_cli, "saliency": saliency}))
+        "train_cli": train_cli, "saliency": saliency,
+        "data_parallel": ddp}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,20 @@ JAX package checkpoint (`.msgpack`). It runs on the card
 (`--device cuda`, the default; a missing card is an error) or, when asked,
 on the CPU. The port has one stream layout and one dense-block layout:
 `--stream_impl` and `--encoder_concat` are accepted and run the same math.
-One device only: `--space` other than 1 raises.
+
+Data parallel: under `torchrun --nproc_per_node N -m
+saunet_tpu_torch.cli.train ...` each rank takes a card
+(`parallel.init_data_parallel`: NCCL when each rank has its own, gloo when
+ranks share one) and the run is the JAX package's run on a ('data',) mesh
+of N devices: the global batch is `--batch_size_per_device` x N, every
+rank samples the same global batches and takes its rows, and the step is
+the global-batch step (synced BatchNorm, the global batch's loss and
+augmentation). Validation runs each rank's rows of each global batch and
+sums the IoU counts over the ranks. Rank 0 alone prints and writes
+checkpoints. On more than one node each rank samples its own shard
+(`DistributedShardSampler`). Without torchrun it is a one-device run.
+`--space` other than 1 raises: spatial parallelism is not ported yet
+(`parallel.SPACE_AXIS_ITEM`).
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import (
     ACDCDataset,
@@ -32,7 +46,15 @@ from ..data import (
     normalize_for_eval,
     to_device,
 )
+from ..data.loader import DistributedShardSampler
 from ..models import build_unet
+from ..parallel.mesh import (
+    in_launched_rank,
+    init_data_parallel,
+    shard_batch,
+    shard_rows,
+    validate_spatial_partition,
+)
 from ..train import (
     BestIoUPolicy,
     cosine_epoch_schedule,
@@ -97,18 +119,17 @@ def parse_args(argv=None):
     # misc
     p.add_argument("--seed", default=304, type=int)
     p.add_argument("--space", default=1, type=int,
-                   help="spatial-parallel mesh axis size (1 only)")
+                   help="spatial-parallel mesh axis size (1 only: the "
+                        "'space' axis is not ported yet)")
     p.add_argument("--resume", action="store_true",
                    help="resume exactly (weights, optimizer, step) from the "
                         "latest checkpoint in the run's ckpt dir")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) needs a card")
     args = p.parse_args(argv)
-    if args.space != 1:
-        raise ValueError("--space: the port trains on one device; spatial "
-                         "parallelism is not ported")
+    validate_spatial_partition(args.crop_size, args.space)
 
-    n_dev = 1
+    n_dev = int(os.environ["WORLD_SIZE"]) if in_launched_rank() else 1
     args.batch_size = args.batch_size_per_device * n_dev
     args.id += f"-{args.unet_arch}-ndev{n_dev}-batchSize{args.batch_size}"
     args.id += f"-LR_unet{args.lr_encoder}-epoch{args.num_epoch}"
@@ -139,10 +160,14 @@ def batches(n, batch_size, rng=None, drop_last=True):
         yield idx[i:i + batch_size]
 
 
-def evaluate(eval_step, state, images, labels, batch_size, num_class):
+def evaluate(eval_step, state, images, labels, batch_size, num_class,
+             mesh=None):
     """Batched validation pass: the last batch is padded by repeating its
     last slice and the padding is masked out of the loss; histogram IoU
-    is accumulated over the real slices."""
+    is accumulated over the real slices. With `mesh`, `batch_size` is the
+    global batch: each rank runs its rows of each batch (`eval_step` from
+    `make_eval_step(mesh=mesh)`), and the IoU counts are summed over the
+    ranks."""
     inter = np.zeros(num_class)
     union = np.zeros(num_class)
     loss_meter = AverageMeter()
@@ -150,37 +175,59 @@ def evaluate(eval_step, state, images, labels, batch_size, num_class):
     for sel in batches(len(images), batch_size, drop_last=False):
         pad = batch_size - len(sel)
         sel_p = np.concatenate([sel, np.repeat(sel[-1:], pad)]) if pad else sel
-        lab = torch.from_numpy(labels[sel_p].astype(np.int32)).to(dev)
-        valid = torch.ones(len(sel_p), device=dev)
-        valid[len(sel):] = 0.0
-        batch = {"image": normalize_for_eval(
-                     torch.from_numpy(images[sel_p]).to(dev)),
-                 "label": lab, "edge": edge_ground_truth(lab, num_class),
-                 "valid": valid}
+        host = {"image": images[sel_p],
+                "label": labels[sel_p].astype(np.int32),
+                "valid": (np.arange(len(sel_p)) < len(sel)).astype(
+                    np.float32)}
+        if mesh is None:
+            rows = slice(0, len(sel_p))
+            mine = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        else:
+            rows = shard_rows(len(sel_p), mesh)
+            mine = shard_batch(host, mesh)
+        lab = mine["label"]
+        batch = {"image": normalize_for_eval(mine["image"]), "label": lab,
+                 "edge": edge_ground_truth(lab, num_class),
+                 "valid": mine["valid"]}
         _, preds, metrics = eval_step(state, batch)
-        preds = preds[:len(sel)].cpu().numpy()
+        real = max(0, min(len(sel) - rows.start, len(preds)))
+        preds = preds[:real].cpu().numpy()
         loss_meter.update(float(metrics["loss"]), weight=len(sel))
-        for j, k in enumerate(sel):
+        for j, k in enumerate(sel_p[rows][:real]):
             i_, u_ = intersection_and_union(preds[j], labels[k], num_class)
             inter += i_
             union += u_
+    if mesh is not None:
+        counts = torch.from_numpy(np.stack([inter, union])).to(dev)
+        dist.all_reduce(counts, group=mesh.group)
+        inter, union = counts.cpu().numpy()
     iou = inter / (union + 1e-10)
     return iou[1:], loss_meter.average()
 
 
+def _quiet(*args, **kwargs):
+    """`print` on ranks other than 0."""
+
+
 def main(argv=None):
     args = parse_args(argv)
-    print("Input arguments:")
+    owns_group = in_launched_rank() and not dist.is_initialized()
+    mesh = init_data_parallel(args.device) if in_launched_rank() else None
+    log = _quiet if mesh is not None and mesh.rank else print
+    log("Input arguments:")
     for k, v in sorted(vars(args).items()):
-        print(f"  {k:24} {v}")
+        log(f"  {k:24} {v}")
 
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    # the same generator state on every rank: each draws the global
+    # batch's augmentation and warps its own rows
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    print(f"device: {device}"
+    log(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + (f", rank 0 of {mesh.world}" if mesh is not None else ""))
 
     # --- data ---------------------------------------------------------
     series = args.series_file or None
@@ -188,12 +235,12 @@ def main(argv=None):
                            k_split=args.k_split, target_size=args.crop_size)
     ds_val = ACDCDataset(args.data_root, split="val", series_file=series,
                          k_split=args.k_split, target_size=args.crop_size)
-    print(f"loading {len(ds_train)} train / {len(ds_val)} val volumes ...")
+    log(f"loading {len(ds_train)} train / {len(ds_val)} val volumes ...")
     t0 = time.time()
     cache = args.slice_cache or None
     train_imgs, train_labs, _ = ds_train.load_slices(cache_dir=cache)
     val_imgs, val_labs, _ = ds_val.load_slices(cache_dir=cache)
-    print(f"  {len(train_imgs)} train / {len(val_imgs)} val slices "
+    log(f"  {len(train_imgs)} train / {len(val_imgs)} val slices "
           f"({time.time() - t0:.1f}s)")
 
     steps_per_epoch = max(len(train_imgs) // args.batch_size, 1)
@@ -208,27 +255,28 @@ def main(argv=None):
     if args.pretrained:
         from ..models.densenet import load_pretrained_encoder
         load_pretrained_encoder(args.pretrained, model)
-        print(f"Loaded pretrained encoder weights from {args.pretrained}.")
+        log(f"Loaded pretrained encoder weights from {args.pretrained}.")
     if args.weights_unet:
         restore_params_only(args.weights_unet, model)
-        print("Loaded pretrained UNet weights.")
-    state = create_train_state(model, tx, device)
+        log("Loaded pretrained UNet weights.")
+    state = create_train_state(model, tx, device, mesh=mesh)
     if args.resume:
         latest = _latest_checkpoint(args.ckpt)
         if latest:
             restore_checkpoint(latest[0], state)
             args.start_epoch = latest[1] + 1
-            print(f"Resumed from {latest[0]} (epoch {latest[1]}); "
+            log(f"Resumed from {latest[0]} (epoch {latest[1]}); "
                   f"continuing at epoch {args.start_epoch}")
 
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {args.unet_arch}  params: {n_params / 1e6:.2f}M")
+    log(f"model: {args.unet_arch}  params: {n_params / 1e6:.2f}M")
 
     augment = make_augment_fn(num_classes=args.num_class,
                               enable_deform=not args.no_deform)
     train_step = make_train_step(model, tx, num_class=args.num_class,
-                                 augment_fn=augment, fix_bn=args.fix_bn)
-    eval_step = make_eval_step(model, num_class=args.num_class)
+                                 augment_fn=augment, fix_bn=args.fix_bn,
+                                 mesh=mesh)
+    eval_step = make_eval_step(model, num_class=args.num_class, mesh=mesh)
 
     # --- epoch loop ---------------------------------------------------
     history = {"train": {"epoch": [], "loss": [], "acc": [], "jaccard": []},
@@ -237,13 +285,23 @@ def main(argv=None):
     shuffle_rng = np.random.RandomState(args.seed)
     os.makedirs(args.ckpt, exist_ok=True)
 
-    sampler = RandomSampler(len(train_imgs), shuffle_rng)
+    if mesh is not None and mesh.nodes > 1:
+        # each rank samples its own shard: its batches are its rows
+        sampler = DistributedShardSampler(len(train_imgs), seed=args.seed)
+        batch_size, place = args.batch_size_per_device, to_device(device)
+    else:
+        # every rank samples the same global batches and takes its rows
+        sampler = RandomSampler(len(train_imgs), shuffle_rng)
+        batch_size = args.batch_size
+        place = (to_device(device) if mesh is None
+                 else lambda b: shard_batch(b, mesh))
     loader = ArrayDataLoader(
         {"image": train_imgs, "label": train_labs.astype(np.int32)},
-        batch_size=args.batch_size, sampler=sampler,
-        place=to_device(device), prefetch=2)
+        batch_size=batch_size, sampler=sampler, place=place, prefetch=2)
 
     for epoch in range(args.start_epoch, args.num_epoch + 1):
+        if isinstance(sampler, DistributedShardSampler):
+            sampler.set_epoch(epoch)
         loss_m, acc_m = AverageMeter(), AverageMeter()
         jac_m = AverageMeter()
         time_m = AverageMeter()
@@ -258,7 +316,7 @@ def main(argv=None):
             if (it + 1) % 10 == 0:
                 lr_now = float(schedule(state.step - 1))
                 jac = np.round(jac_m.average(), 2)
-                print(f"Epoch: [{epoch}/{args.num_epoch}] "
+                log(f"Epoch: [{epoch}/{args.num_epoch}] "
                       f"Iter: [{it + 1}/{steps_per_epoch}] "
                       f"Time: {time_m.average():.2f}s lr: {lr_now:.6f} "
                       f"Acc: {acc_m.average():.2f} "
@@ -271,10 +329,10 @@ def main(argv=None):
             float(np.mean(jac_m.average())))
 
         iou, val_loss = evaluate(eval_step, state, val_imgs, val_labs,
-                                 args.batch_size, args.num_class)
+                                 args.batch_size, args.num_class, mesh)
         for i, v in enumerate(iou, start=1):
-            print(f"class [{i}], IoU: {v:.4f}")
-        print(f"val loss: {val_loss:.4f}")
+            log(f"class [{i}], IoU: {v:.4f}")
+        log(f"val loss: {val_loss:.4f}")
         history["val"]["epoch"].append(epoch)
         history["val"]["iou"].append([float(v) for v in iou])
         history["val"]["loss"].append(float(val_loss))
@@ -282,11 +340,14 @@ def main(argv=None):
         if policy.update(epoch, iou, args.num_epoch):
             path = save_checkpoint(args.ckpt, f"epoch_{epoch}", state,
                                    history)
-            print(f"Saved checkpoint {path}")
+            log(f"Saved checkpoint {path}")
 
-    with open(os.path.join(args.ckpt, "best.json"), "w") as f:
-        json.dump({**policy.best, **policy.best_epoch}, f, indent=2)
-    print("Training Done!")
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(args.ckpt, "best.json"), "w") as f:
+            json.dump({**policy.best, **policy.best_epoch}, f, indent=2)
+    log("Training Done!")
+    if owns_group:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -191,19 +191,32 @@ def augment_with_coords(imgs: torch.Tensor, labels: torch.Tensor,
 
 
 def make_augment_fn(num_classes: int = 4, enable_deform: bool = True):
-    """(gen, {image (N, H, W[, 1]), label (N, H, W)}) -> {image (N, H, W, 3)
-    f32, label (N, H, W) int32, edge (N, H, W, 1) f32}, on the batch's
-    device."""
+    """(gen, {image (N, H, W[, 1]), label (N, H, W)}[, shard]) -> {image
+    (N, H, W, 3) f32, label (N, H, W) int32, edge (N, H, W, 1) f32}, on the
+    batch's device.
+
+    shard (index, count): the batch is block `index` of `count` equal
+    blocks of a global batch (a rank's rows in the data-parallel step).
+    The draws are made for the whole global batch, as one process would
+    make them, and this block's rows of them are used: every rank's
+    generator is in the same state, so the ranks together augment the
+    global batch exactly as one process does."""
 
     def augment(gen: Optional[torch.Generator],
-                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                batch: Dict[str, torch.Tensor],
+                shard: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, torch.Tensor]:
         if gen is None:
             raise ValueError("augment needs a torch.Generator")
         imgs, labels = batch["image"], batch["label"]
         if imgs.dim() == 4:
             imgs = imgs[..., 0]
         n, h, w = imgs.shape
-        d = draw(gen, n, h, w, enable_deform, imgs.device)
+        index, count = shard or (0, 1)
+        d = draw(gen, n * count, h, w, enable_deform, imgs.device)
+        if count > 1:
+            rows = slice(index * n, (index + 1) * n)
+            d = {k: None if v is None else v[rows] for k, v in d.items()}
         sy, sx, gamma = coords_from_draws(h=h, w=w, **d)
         return augment_with_coords(imgs.float(), labels.to(torch.int32),
                                    sy, sx, gamma, num_classes)

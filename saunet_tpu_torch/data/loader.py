@@ -14,6 +14,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def to_device(device) -> Callable[[Dict[str, np.ndarray]], Dict]:
@@ -98,15 +99,22 @@ class WeightedRandomSampler(Sampler):
 
 
 class DistributedShardSampler(Sampler):
-    """Per-host shard of a deterministically shuffled index set — the role
-    of the reference's (never-used) DistributedSampler: each host loads only
-    its 1/num_shards of the data, reshuffled per epoch by `set_epoch`."""
+    """Per-rank shard of a deterministically shuffled index set — the role
+    of the reference's (never-used) DistributedSampler: each rank loads only
+    its 1/num_shards of the data, reshuffled per epoch by `set_epoch`.
+    `num_shards` and `shard_id` default to the process group's size and
+    this process's rank (1 and 0 without a group), as the JAX sampler's
+    default to `jax.process_count()` and `jax.process_index()`."""
 
-    def __init__(self, n: int, num_shards: int = 1, shard_id: int = 0,
-                 shuffle: bool = True, seed: int = 0):
+    def __init__(self, n: int, num_shards: Optional[int] = None,
+                 shard_id: Optional[int] = None, shuffle: bool = True,
+                 seed: int = 0):
+        grouped = dist.is_available() and dist.is_initialized()
         self.n = n
-        self.num_shards = num_shards
-        self.shard_id = shard_id
+        self.num_shards = (num_shards if num_shards is not None
+                           else dist.get_world_size() if grouped else 1)
+        self.shard_id = (shard_id if shard_id is not None
+                         else dist.get_rank() if grouped else 0)
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0

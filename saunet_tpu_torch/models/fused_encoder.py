@@ -41,12 +41,14 @@ def fold_encoder(encoder, dtype: torch.dtype) -> List[dict]:
 
 def encoder_apply_fused(encoder, folded: List[dict], x: torch.Tensor,
                         dtype: torch.dtype = torch.bfloat16,
-                        block=dense_block) -> Tuple[torch.Tensor, ...]:
+                        block=None) -> Tuple[torch.Tensor, ...]:
     """(N, H, W, 3) NHWC -> the five taps f1..f5, NHWC, eval mode.
 
     `folded` is `fold_encoder(encoder, dtype)`. The dense blocks run in
     `dtype` through `block` (the kernel wrapper; a check may pass
-    `dense_block_plain`); on the card the kernel takes bf16 only."""
+    `dense_block_plain`; None: this module's `dense_block`, looked up at
+    the call); on the card the kernel takes bf16 only."""
+    block = dense_block if block is None else block
     x = x.to(dtype).permute(0, 3, 1, 2)
     f1 = _bn_affine(encoder.conv0(x), encoder.norm0)
     h = f1.permute(0, 2, 3, 1).contiguous()

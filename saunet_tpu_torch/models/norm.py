@@ -13,17 +13,32 @@ BatchNorm2d normalises with the biased variance too but updates
 statistics come from torch's batch norm (two-pass/Welford, not flax's
 `E[x^2] - E[x]^2`): the two agree to f32 rounding unless a channel's mean
 dwarfs its spread.
+
+Synced BatchNorm (the counterpart of `cfg.MODEL.BN_AXIS_NAME`): inside
+`sync_batch_norm(model, group)` a train-mode BatchNorm takes its
+statistics over every rank of `group`. One differentiable all-reduce of the
+stacked f32 (sum x, sum x^2, n) a layer gives the global mean and
+var = max(0, E[x^2] - E[x]^2), flax's fast variance under `pmean`; the
+running statistics update with them as above. Without a group nothing of
+this runs.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from ..utils.config import BN_EPS, BN_MOMENTUM
 
 
 class BatchNorm2d(nn.BatchNorm2d):
+    #: the process group whose ranks share the batch statistics (set by
+    #: `sync_batch_norm`); None: this process's batch alone
+    group = None
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
@@ -33,6 +48,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
+        if self.group is not None:
+            return self._forward_synced(xf).to(x.dtype)
         # momentum 1 leaves exactly this batch's mean and unbiased variance
         # in the scratch buffers
         mean = torch.zeros_like(self.running_mean)
@@ -41,11 +58,47 @@ class BatchNorm2d(nn.BatchNorm2d):
                          True, 1.0, self.eps)
         n = xf.numel() // xf.shape[1]
         with torch.no_grad():
-            var = var_unbiased * ((n - 1) / n)
-            m = self.momentum
-            if m is None:  # cumulative average, as in torch's BatchNorm2d
-                m = 1.0 / float(self.num_batches_tracked + 1)
-            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var_unbiased * ((n - 1) / n))
         return y.to(x.dtype)
+
+    def _forward_synced(self, xf: torch.Tensor) -> torch.Tensor:
+        c = xf.shape[1]
+        dims = (0, 2, 3)
+        n = xf.new_full((c,), float(xf.numel() // c))
+        sums = all_reduce_sum(
+            torch.stack([xf.sum(dims), (xf * xf).sum(dims), n]), self.group)
+        mean = sums[0] / sums[2]
+        var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
+             + self.bias[None, :, None, None])
+        with torch.no_grad():
+            self._update_running(mean, var)
+        return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        if m is None:  # cumulative average, as in torch's BatchNorm2d
+            m = 1.0 / float(self.num_batches_tracked + 1)
+        self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+        self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, group):
+    """Within the block, every `BatchNorm2d` of `model` in train mode takes
+    its statistics over the ranks of `group` (the counterpart of
+    `syncbn_axis`); `group` None changes nothing (an enclosing block's
+    group stays)."""
+    if group is None:
+        yield model
+        return
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.group = group
+    try:
+        yield model
+    finally:
+        for m in bns:
+            m.group = None

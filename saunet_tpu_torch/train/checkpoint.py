@@ -9,6 +9,7 @@ by `load_jax_variables` without flax): the reference's `--weights_unet`
 warm start, and what `test_and_pack --checkpoint` and `saliency
 --checkpoint` read. A full resume from a JAX checkpoint's optimizer state
 is not ported. `BestIoUPolicy` is the reference's rule for when to save.
+Under a process group rank 0 alone writes, and every rank reads.
 """
 from __future__ import annotations
 
@@ -18,23 +19,30 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.jax_weights import from_jax_variables
+from ..parallel.mesh import barrier
 from ..utils import msgpack
 from .state import TrainState
 
 
 def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
                     history: Dict) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write `state_<tag>.pt` and `history_<tag>.json`; returns the .pt
+    path. Under a process group only rank 0 writes (the ranks hold equal
+    states), and every rank waits until it has written."""
     path = os.path.join(ckpt_dir, f"state_{tag}.pt")
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step),
-                "history": _jsonable(history)}, path)
-    with open(os.path.join(ckpt_dir, f"history_{tag}.json"), "w") as f:
-        json.dump(_jsonable(history), f)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": int(state.step),
+                    "history": _jsonable(history)}, path)
+        with open(os.path.join(ckpt_dir, f"history_{tag}.json"), "w") as f:
+            json.dump(_jsonable(history), f)
+    barrier(state.device)
     return path
 
 

@@ -6,6 +6,12 @@ Layouts are the JAX package's: logits (N, H, W, C), edge probabilities
 model's compute dtype. `sample_mask` (N,) {0, 1} removes padded samples
 from every reduction. The lane-packed `dual_loss_packed` is a TPU layout of
 the same math and is not ported.
+
+`group` (a process group, or None) makes each loss the loss of the global
+batch whose rows the ranks of `group` hold: every sum in a ratio or a mean
+is all-reduced (differentiably) before the division, as the JAX step's
+global arrays are reduced under SPMD jit. Without a group each function
+computes what it computes on one process.
 """
 from __future__ import annotations
 
@@ -13,13 +19,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.collectives import all_reduce_sum
+
 DEFAULT_CLASS_WEIGHTS = (1.0, 4.0, 5.0, 1.0)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights=DEFAULT_CLASS_WEIGHTS,
-                           sample_mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           sample_mask: Optional[torch.Tensor] = None,
+                           group=None) -> torch.Tensor:
     """Weighted mean of the pixel NLL, normalised by the sum of the pixel
     weights (torch's `CrossEntropyLoss(weight=...)` semantics)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -29,11 +37,16 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                         device=logits.device)[labels]
     if sample_mask is not None:
         w = w * sample_mask.float()[:, None, None]
+    if group is not None:
+        num, den = all_reduce_sum(
+            torch.stack([torch.sum(w * nll), torch.sum(w)]), group)
+        return num / den
     return torch.sum(w * nll) / torch.sum(w)
 
 
 def dice_loss(labels: torch.Tensor, logits: torch.Tensor, eps: float = 1e-7,
-              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              sample_mask: Optional[torch.Tensor] = None,
+              group=None) -> torch.Tensor:
     """1 - soft Dice over softmax probabilities, reduced over (N, H, W)
     jointly and averaged over classes."""
     logits = logits.float()
@@ -47,16 +60,30 @@ def dice_loss(labels: torch.Tensor, logits: torch.Tensor, eps: float = 1e-7,
     dims = (0, 1, 2)
     intersection = torch.sum(probas * one_hot, dim=dims)
     cardinality = torch.sum(probas + one_hot, dim=dims)
+    if group is not None:
+        intersection, cardinality = all_reduce_sum(
+            torch.stack([intersection, cardinality]), group)
     return 1.0 - torch.mean(2.0 * intersection / (cardinality + eps))
 
 
 def edge_bce(edge_probs: torch.Tensor, edge_targets: torch.Tensor,
              eps: float = 1e-7,
-             sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             sample_mask: Optional[torch.Tensor] = None,
+             group=None) -> torch.Tensor:
     """Mean binary cross-entropy on probabilities clipped to [eps, 1-eps]."""
     p = torch.clamp(edge_probs.float(), eps, 1.0 - eps)
     t = edge_targets.float()
     ll = t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p)
+    if group is not None:
+        if sample_mask is None:
+            count = ll.new_tensor(float(ll.numel()))
+        else:
+            m = sample_mask.float().reshape((-1,) + (1,) * (ll.dim() - 1))
+            ll = ll * m
+            count = torch.sum(sample_mask.float()) * float(ll[0].numel())
+        total, count = all_reduce_sum(torch.stack([torch.sum(ll), count]),
+                                      group)
+        return -total / count
     if sample_mask is None:
         return -torch.mean(ll)
     m = sample_mask.float().reshape((-1,) + (1,) * (ll.dim() - 1))
@@ -67,14 +94,16 @@ def edge_bce(edge_probs: torch.Tensor, edge_targets: torch.Tensor,
 def dual_loss(seg_logits: torch.Tensor, edge_probs: torch.Tensor,
               seg_targets: torch.Tensor, edge_targets: torch.Tensor,
               class_weights=DEFAULT_CLASS_WEIGHTS,
-              sample_mask: Optional[torch.Tensor] = None
+              sample_mask: Optional[torch.Tensor] = None, group=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {'loss', 'ce', 'dice', 'edge'}); total = dice + ce + edge."""
     if edge_targets.dim() == edge_probs.dim() - 1:
         edge_targets = edge_targets[..., None]
     ce = weighted_cross_entropy(seg_logits, seg_targets, class_weights,
-                                sample_mask=sample_mask)
-    dice = dice_loss(seg_targets, seg_logits, sample_mask=sample_mask)
-    edge = edge_bce(edge_probs, edge_targets, sample_mask=sample_mask)
+                                sample_mask=sample_mask, group=group)
+    dice = dice_loss(seg_targets, seg_logits, sample_mask=sample_mask,
+                     group=group)
+    edge = edge_bce(edge_probs, edge_targets, sample_mask=sample_mask,
+                    group=group)
     total = dice + ce + edge
     return total, {"loss": total, "ce": ce, "dice": dice, "edge": edge}

@@ -1,7 +1,8 @@
 """Segmentation metrics (counterpart of saunet_tpu/train/metrics.py).
 
-`pixel_acc` runs on the step's tensors, on their device; the others are
-host-side numpy, accumulated by the eval loop.
+`pixel_acc` runs on the step's tensors, on their device (with `group`, on
+the counts summed over its ranks: the metrics of the global batch); the
+others are host-side numpy, accumulated by the eval loop.
 """
 from __future__ import annotations
 
@@ -10,9 +11,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_reduce_sum
+
 
 def pixel_acc(preds: torch.Tensor, labels: torch.Tensor,
-              num_class: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              num_class: int, group=None) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
     """preds/labels (N, H, W) int -> (foreground accuracy over label >= 1,
     per-class Jaccard of classes 1..num_class-1), f32 tensors."""
     labels = labels.long()
@@ -20,7 +24,6 @@ def pixel_acc(preds: torch.Tensor, labels: torch.Tensor,
     valid = labels >= 1
     acc_sum = (valid & (preds == labels)).sum().float()
     pixel_sum = valid.sum().float()
-    acc = acc_sum / (pixel_sum + 1e-10)
 
     cls = torch.arange(1, num_class, device=labels.device)[:, None, None,
                                                          None]
@@ -28,6 +31,12 @@ def pixel_acc(preds: torch.Tensor, labels: torch.Tensor,
     p = preds[None] == cls
     anb = (v & p).sum(dim=(1, 2, 3)).float()
     denom = (v.sum(dim=(1, 2, 3)) + p.sum(dim=(1, 2, 3))).float() - anb
+    if group is not None:
+        sums = all_reduce_sum(torch.cat([torch.stack([acc_sum, pixel_sum]),
+                                         anb, denom]), group)
+        acc_sum, pixel_sum = sums[0], sums[1]
+        anb, denom = sums[2:].chunk(2)
+    acc = acc_sum / (pixel_sum + 1e-10)
     return acc, anb / (denom + 1e-10)
 
 

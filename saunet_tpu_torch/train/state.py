@@ -8,15 +8,28 @@ operands folded once) serves. Layouts at the steps are the JAX package's:
 NHWC images in, (N, H, W) predictions out, NHWC probabilities, edge and
 attention maps. Every entry point runs on the card unless the caller names
 another device.
+
+Data parallel (`mesh`, a parallel.DataMesh): `create_train_state` puts the
+model on the rank's device and copies rank 0's weights to every rank;
+`make_train_step(mesh=...)` is the JAX package's global-batch step as its
+('data',) mesh runs it. Each rank holds a block of rows of the global batch
+(`parallel.shard_batch`), BatchNorm takes its statistics over every rank,
+the loss and the metrics are those of the global batch, the augmentation
+is drawn for the global batch, and DistributedDataParallel averages the
+gradients. `make_eval_step(mesh=...)` runs each rank's rows and reduces
+the masked loss and the metrics' counts over the ranks.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from ..models.fused_encoder import encoder_apply_fused, fold_encoder
+from ..models.norm import sync_batch_norm
+from ..parallel.mesh import DataMesh, broadcast_module_
 from .losses import DEFAULT_CLASS_WEIGHTS, dual_loss
 from .metrics import pixel_acc
 
@@ -64,10 +77,18 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, tx: Callable,
-                       device: Optional[torch.device | str] = None
-                       ) -> TrainState:
-    """Move `model` to `device` (default: the card) and build its
-    optimizer with `tx` (train/optim.py)."""
+                       device: Optional[torch.device | str] = None,
+                       mesh: Optional[DataMesh] = None) -> TrainState:
+    """Move `model` to `device` (default: the card; with `mesh`, the
+    rank's device, and rank 0's weights copied to every rank) and build
+    its optimizer with `tx` (train/optim.py)."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"create_train_state: device {device} is not "
+                             f"the rank's {mesh.device}")
+        model = model.to(mesh.device)
+        broadcast_module_(model, mesh)
+        return TrainState(model, tx, mesh.device)
     device = resolve_device(device)
     return TrainState(model.to(device), tx, device)
 
@@ -83,10 +104,26 @@ def _batch_on(batch: Dict[str, torch.Tensor], device) -> dict:
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def ddp(model: nn.Module, mesh: DataMesh) -> nn.Module:
+    """`model` in DistributedDataParallel over `mesh` (gradients averaged
+    over the ranks; buffers not broadcast: synced BatchNorm keeps the
+    running statistics equal on every rank)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    ids = [mesh.device] if mesh.device.type == "cuda" else None
+    with warnings.catch_warnings():
+        # newer torch calls broadcast_buffers deprecated in favour of an
+        # argument older ones lack; its meaning is unchanged
+        warnings.simplefilter("ignore", FutureWarning)
+        return DistributedDataParallel(model, device_ids=ids,
+                                       process_group=mesh.group,
+                                       broadcast_buffers=False)
+
+
 def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
                     class_weights=DEFAULT_CLASS_WEIGHTS,
                     augment_fn: Optional[Callable] = None,
-                    fix_bn: bool = False):
+                    fix_bn: bool = False, mesh: Optional[DataMesh] = None):
     """`step(state, batch, gen=None) -> (state, metrics)`: optional
     augmentation `augment_fn(gen, batch)`, the forward in train mode, the
     dual loss, backward and the optimizer update, and the metrics `loss`,
@@ -97,8 +134,15 @@ def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
     augmentation's input {image (N, H, W), label} with `augment_fn`.
     `fix_bn` keeps every BatchNorm in eval mode (running statistics
     untouched) while all parameters, the BN affine included, still get
-    gradients: the reference's --fix_bn."""
+    gradients: the reference's --fix_bn.
+
+    mesh: the global-batch step over the ranks (module docstring); `batch`
+    is then this rank's rows, `gen` in the same state on every rank, and
+    the metrics are the global batch's. The state must come from
+    `create_train_state(..., mesh=mesh)`."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    group = None if mesh is None else mesh.group
+    net = model if mesh is None else ddp(model, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              gen: Optional[torch.Generator] = None):
@@ -108,28 +152,31 @@ def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
                              "optimizer")
         batch = _batch_on(batch, state.device)
         if augment_fn is not None:
-            batch = augment_fn(gen, batch)
+            batch = (augment_fn(gen, batch) if mesh is None else
+                     augment_fn(gen, batch, shard=(mesh.rank, mesh.world)))
         model.train()
         if fix_bn:
             for m in bns:
                 m.eval()
-        seg, edge = model(batch["image"].permute(0, 3, 1, 2))
+        with sync_batch_norm(model, group):
+            seg, edge = net(batch["image"].permute(0, 3, 1, 2))
         seg = seg.permute(0, 2, 3, 1)
         total, parts = dual_loss(seg, edge.permute(0, 2, 3, 1),
                                  batch["label"], batch["edge"],
-                                 class_weights)
+                                 class_weights, group=group)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
             acc, jaccard = pixel_acc(seg.argmax(dim=-1), batch["label"],
-                                     num_class)
+                                     num_class, group=group)
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics["acc"] = acc
         metrics["jaccard"] = jaccard
         return state, metrics
 
+    step.net = net  # the DDP wrapper on a mesh (for comm hooks)
     return step
 
 
@@ -154,12 +201,19 @@ def _forward_eval(model, folded, images: torch.Tensor, fused: bool,
 
 def make_eval_step(model: nn.Module, num_class: int = 4,
                    class_weights=DEFAULT_CLASS_WEIGHTS,
-                   with_probs: bool = False):
+                   with_probs: bool = False,
+                   mesh: Optional[DataMesh] = None):
     """`step(state, batch) -> (probs | None, preds, metrics)` in eval mode:
     the dual loss (masked by the optional (N,) `valid` entry, so a padded
     last batch reports the loss of its real samples only), `acc` and
     `jaccard`. The encoder runs on the dense-block kernel for a bf16 model
-    on the card (`use_fused_encoder`)."""
+    on the card (`use_fused_encoder`).
+
+    mesh: `batch` is this rank's rows of a global batch; probs and preds
+    are this rank's, the loss and the metrics the global batch's (eval
+    BatchNorm reads the running statistics, so the forward needs no
+    collective)."""
+    group = None if mesh is None else mesh.group
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         _check_state(state, model, "make_eval_step")
@@ -175,9 +229,11 @@ def make_eval_step(model: nn.Module, num_class: int = 4,
             total, parts = dual_loss(seg, edge.permute(0, 2, 3, 1),
                                      batch["label"], batch["edge"],
                                      class_weights,
-                                     sample_mask=batch.get("valid"))
+                                     sample_mask=batch.get("valid"),
+                                     group=group)
             preds = seg.argmax(dim=-1)
-            acc, jaccard = pixel_acc(preds, batch["label"], num_class)
+            acc, jaccard = pixel_acc(preds, batch["label"], num_class,
+                                     group=group)
             probs = torch.softmax(seg, dim=-1) if with_probs else None
         metrics = dict(parts)
         metrics["acc"] = acc
