@@ -105,6 +105,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      synced BatchNorm) against the plain step in turns at b32, and the
      NCCL kernels' device time; its K1 and K5 calls held against the plain
      versions as above.
+  11. the 'space' axis: two ranks as a ('data' 1, 'space' 2) grid share
+     the card over gloo, each holding half the rows of every image. The
+     f32 eval of 8 slices at 512^2 (one padded; TF32 off; the plain
+     encoder, as on every 'space' grid): 1 Canny and no dense block a
+     rank; the ranks' predictions against the one-process f32 eval's: at
+     most SPACE_EVAL_FLIPS_MAX of the real pixels flipped (f32 last-bit
+     differences at near-tied logits), and the IoU counts summed over the
+     ranks moved by no more than the flipped pixels. Then the full-width bf16 global-batch step at 512^2, global
+     batch 8, with augmentation, from the same weights and generator
+     state as a one-process `make_train_step` (run twice: its spread is
+     printed beside the ranks' difference): loss parts within
+     SPACE_LOSS_RTOL, running statistics equal on both ranks, the update
+     within 0.1 of the largest update; counters zeroed just before the
+     step and read just after: 1 Canny and 1 warp a rank. Every K1 and K5
+     call of the ranks (the Canny bands, the warps of whole images) held
+     against the plain versions: K1 exact, K5 exact. Step ms a rank, row
+     exchanges and their bytes a step, peak memory a rank, and one more
+     step with every exchange timed alone, by buffer shape. Then
+     `cli.train --space 2` under torchrun (2 ranks, one epoch at crop 224
+     on phase 8's volumes, where H/32 holds 7 rows over 2 ranks): IoU
+     printed once, one checkpoint, served by test_and_pack; and the dry
+     run on 4 ranks as a 2 x 2 grid at 64^2.
 Then a {"kernels": [...]} line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type,
 H100 SXM data sheet) and, last, the {"ok": true, "device": ...} line.
@@ -1336,6 +1358,9 @@ def _ddp_kernel_parity(runs) -> dict:
                 calls[name] += got["parity"][name] + got["parity_rows"][name]
     out = {}
     for name, checked in calls.items():
+        if not checked:  # K3 on the 'space' axis: the plain encoder
+            out[name] = {"calls": 0, "shapes": []}
+            continue
         shapes = sorted({tuple(c["shape"]) for c in checked})
         if name == "canny":
             flips = sum(c["flips"] for c in checked)
@@ -1602,21 +1627,25 @@ def phase_data_parallel(device, tmp, root):
                           "peak_memory_bytes": one["peak_memory_bytes"]}}
 
 
-def _ddp_train_cli(device, tmp, root):
-    """`cli.train` under torchrun on DDP_RANKS ranks, one epoch at crop
-    224 on phase 8's volumes; its checkpoint served by test_and_pack."""
+def _ddp_train_cli(device, tmp, root, space: int = 1):
+    """`cli.train` under torchrun on DDP_RANKS ranks (as a (DDP_RANKS /
+    space) x space grid), one epoch at crop 224 on phase 8's volumes; its
+    checkpoint served by test_and_pack."""
     import numpy as np
 
     from saunet_tpu_torch.cli.test_and_pack import main as pack_main
     from saunet_tpu_torch.data import nifti
 
     here = os.path.dirname(os.path.abspath(__file__))
-    ckpt = os.path.join(tmp, "ckpt_ddp")
+    name = "smoke_ddp" if space == 1 else "smoke_space"
+    ckpt = os.path.join(tmp, f"ckpt_{name}")
+    # a global batch of 8 either way
+    per_device = 8 * space // DDP_RANKS
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(DDP_RANKS), "-m",
            "saunet_tpu_torch.cli.train", "--data-root", root, "--ckpt", ckpt,
-           "--num_epoch", "1", "--batch_size_per_device", "4",
-           "--crop_size", str(SIZE), "--id", "smoke_ddp",
+           "--num_epoch", "1", "--batch_size_per_device", str(per_device),
+           "--crop_size", str(SIZE), "--id", name, "--space", str(space),
            "--device", device.type]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -1626,7 +1655,7 @@ def _ddp_train_cli(device, tmp, root):
                           env=env, cwd=here)
     seconds = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "ddp_train_cli.log"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{name}_train_cli.log"), "w") as f:
         f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     require(proc.returncode == 0,
             f"torchrun cli.train failed ({proc.returncode}): "
@@ -1643,10 +1672,13 @@ def _ddp_train_cli(device, tmp, root):
     files = sorted(os.listdir(run))
     require(files == ["best.json", "history_epoch_1.json",
                       "state_epoch_1.pt"], f"torchrun cli.train wrote {files}")
-    log(f"torchrun cli.train: {DDP_RANKS} ranks, one epoch in "
-        f"{seconds:.3f} s; {runs[0]}: {files}")
-    out_dir, res = os.path.join(tmp, "out_ddp"), os.path.join(tmp, "res_ddp")
-    pack_main(["--id", "smoke_ddp", "--checkpoint",
+    require(f"('data' {DDP_RANKS // space}, 'space' {space})"
+            in proc.stdout, "torchrun cli.train did not lay out its grid")
+    log(f"torchrun cli.train: {DDP_RANKS} ranks, 'space' {space}, one "
+        f"epoch in {seconds:.3f} s; {runs[0]}: {files}")
+    out_dir, res = (os.path.join(tmp, f"out_{name}"),
+                    os.path.join(tmp, f"res_{name}"))
+    pack_main(["--id", name, "--checkpoint",
                os.path.join(run, "state_epoch_1.pt"), "--data-root", root,
                "--crop_size", str(SIZE), "--save_test_path", out_dir,
                "--result", res, "--device", str(device)])
@@ -1656,6 +1688,252 @@ def _ddp_train_cli(device, tmp, root):
         f"{sorted(np.unique(pred).tolist())}")
     return {"seconds": seconds, "run": runs[0], "files": files,
             "served_shape": list(pred.shape)}
+
+
+SPACE_RANKS, SPACE_HW, SPACE_BATCH = 2, 512, 8
+# the 'space' step's loss parts against the one-process step, relative: in
+# bf16 the ranks' band convs may take other cuDNN algorithms than the whole
+# image's, their resizes and squeeze-and-excite means sum in f32 in
+# another order, and the synced BatchNorm takes E[x^2] - E[x]^2; phase
+# 10's same-shape ranks stayed within 6.74e-5 (PERF.md)
+SPACE_LOSS_RTOL = 1e-3
+# the 'space' eval's predictions against the one-process eval's, f32: the
+# ranks' band convs (cuDNN picks algorithms by shape) and their squeeze-
+# and-excite means (a sum over each rank's rows, then over the ranks) round
+# differently in the last bit, which flips pixels whose top two logits are
+# that close; a halo defect flips a border row of every image (512 of the
+# 7 * 512^2 real pixels, 2.8e-4, at each border), 28 times this bound
+SPACE_EVAL_FLIPS_MAX = 1e-5
+
+
+def _space_reference(device, wpath, batch, eval_batch):
+    """The one-process f32 eval (the plain encoder, TF32 off) of the whole
+    eval batch and the bf16 train step with augmentation, from the
+    weights in `wpath`, twice: (first, second)."""
+    import torch
+
+    from saunet_tpu_torch.data import make_augment_fn
+    from saunet_tpu_torch.parallel.parity import (
+        bn_buffers,
+        build_model,
+        iou_counts,
+    )
+    from saunet_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+        radam,
+    )
+
+    model = build_model(wpath, "float32")
+    state = create_train_state(model, radam(0.0), device)
+    _, preds, metrics = make_eval_step(model)(
+        state, {k: torch.from_numpy(v).to(device)
+                for k, v in eval_batch.items()})
+    preds = preds.cpu().numpy()
+    inter, union = iou_counts(preds, eval_batch["label"], eval_batch["valid"])
+    evaluation = {"preds": preds, "inter": inter, "union": union,
+                  "loss": float(metrics["loss"])}
+    del model, state
+    runs = []
+    for _ in range(2):
+        model = build_model(wpath, "bfloat16")
+        tx = radam(1e-4)
+        state = create_train_state(model, tx, device)
+        step = make_train_step(model, tx, augment_fn=make_augment_fn())
+        dgen = torch.Generator(device=device).manual_seed(8)
+        state, m = step(state, {k: torch.from_numpy(v).to(device)
+                                for k, v in batch.items()}, dgen)
+        torch.cuda.synchronize()
+        runs.append({"metrics": {k: float(m[k])
+                                 for k in ("loss", "ce", "dice", "edge")},
+                     "buffers": bn_buffers(model),
+                     "params": {k: v.detach().cpu()
+                                for k, v in model.named_parameters()}})
+        del model, state, step
+        torch.cuda.empty_cache()
+    return evaluation, runs
+
+
+def phase_space(device, tmp, root):
+    """Phase 11: the 'space' axis: the eval, the step, `cli.train --space
+    2` under torchrun and the 2 x 2 dry run on ranks."""
+    import numpy as np
+    import torch
+
+    from saunet_tpu_torch.data import edge_ground_truth, normalize_for_eval
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.models.init import calibrate_bn_, init_random_
+    from saunet_tpu_torch.parallel.dryrun import run_mesh_step
+    from saunet_tpu_torch.parallel.launch import run_ranks
+
+    log(f"space: {SPACE_RANKS} ranks as ('data' 1, 'space' {SPACE_RANKS}) "
+        f"share one card over gloo, each holding {SPACE_HW // SPACE_RANKS} "
+        f"of the {SPACE_HW} rows of every image: this measures "
+        f"correctness, not scaling")
+    gen = torch.Generator().manual_seed(21)
+    model = init_random_(build_unet(dtype="float32"), gen).to(device)
+    calib = normalize_for_eval(synthetic_slices(4, SPACE_HW, SPACE_HW, gen,
+                                                device))
+    calibrate_bn_(model, calib.permute(0, 3, 1, 2))
+    wpath = os.path.join(tmp, "space_weights.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, wpath)
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.named_parameters()}
+    del model, calib
+    torch.cuda.empty_cache()
+    img, lab = synthetic_labelled(SPACE_BATCH, SPACE_HW, SPACE_HW,
+                                  torch.Generator().manual_seed(22), "cpu")
+    batch = {"image": img.numpy(), "label": lab.numpy()}
+    eimg, elab = synthetic_labelled(SPACE_BATCH, SPACE_HW, SPACE_HW,
+                                    torch.Generator().manual_seed(23), "cpu")
+    eval_batch = {"image": normalize_for_eval(eimg).numpy(),
+                  "label": elab.numpy(),
+                  "edge": edge_ground_truth(elab).numpy(),
+                  "valid": (np.arange(SPACE_BATCH) < SPACE_BATCH - 1).astype(
+                      np.float32)}
+    evaluation, (ref, again) = _space_reference(device, wpath, batch,
+                                                eval_batch)
+    spread = _update_gap(again["params"], ref["params"], start)
+    spread_loss = max(abs(again["metrics"][k] - ref["metrics"][k])
+                      / abs(ref["metrics"][k]) for k in ref["metrics"])
+    log(f"one-process step run twice: loss parts differ by {spread_loss:.3e} "
+        f"(relative), largest update difference {spread:.4e} of the "
+        f"largest update")
+    t0 = time.perf_counter()
+    res = run_ranks(SPACE_RANKS,
+                    "saunet_tpu_torch.parallel.parity:timed_case",
+                    dict(weights=wpath, batch=batch, eval_batch=eval_batch,
+                         augment_seed=8, timed_steps=3, space=SPACE_RANKS,
+                         eval_dtype="float32"),
+                    device=device.type, timeout=600)
+    log(f"ranks ran in {time.perf_counter() - t0:.3f} s, backend "
+        f"{res[0]['backend']}, devices {[r['device'] for r in res]}")
+
+    for r, x in enumerate(res):
+        got = _by_kernel(x["eval"]["launches"])
+        log(f"space rank {r} eval launches: {got}")
+        require(got == {"canny": 1, "dense_block": 0, "warp": 0,
+                        "gather": 0, "shape_stream": 0},
+                f"space rank {r} eval did not run each kernel as expected")
+    preds = np.concatenate([x["eval"]["preds"] for x in res], axis=1)
+    flips = int((preds != evaluation["preds"]).sum())
+    inter = sum(x["eval"]["inter"] for x in res)
+    union = sum(x["eval"]["union"] for x in res)
+    log(f"space eval (f32) IoU counts, ranks: inter {inter.tolist()} union "
+        f"{union.tolist()}; one process: inter "
+        f"{evaluation['inter'].tolist()} union "
+        f"{evaluation['union'].tolist()}; preds differ on {flips} pixels; "
+        f"masked loss ranks {float(res[0]['eval']['metrics']['loss'])}, one "
+        f"process {evaluation['loss']}")
+    real = preds[eval_batch["valid"] > 0]
+    flips_real = int((real != evaluation["preds"][
+        eval_batch["valid"] > 0]).sum())
+    moved = max(np.abs(inter - evaluation["inter"]).max(),
+                np.abs(union - evaluation["union"]).max())
+    log(f"space eval: {flips_real} of {real.size} real pixels flipped "
+        f"({flips_real / real.size:.3e}; limit {SPACE_EVAL_FLIPS_MAX}); "
+        f"the IoU counts moved by at most {moved}")
+    require(flips_real <= SPACE_EVAL_FLIPS_MAX * real.size
+            and moved <= flips_real,
+            "the space ranks' predictions differ from the one-process "
+            "eval's beyond f32 rounding")
+
+    for r, x in enumerate(res):
+        got = _by_kernel(x["launches"])
+        log(f"space rank {r} train step launches: {got}")
+        require(got == {"canny": 1, "dense_block": 0, "warp": 1,
+                        "gather": 0, "shape_stream": 0},
+                f"space rank {r} train step did not run each kernel as "
+                f"expected")
+    parts = {k: float(res[0]["metrics"][k])
+             for k in ("loss", "ce", "dice", "edge")}
+    rel = {k: abs(parts[k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+           for k in parts}
+    log(f"space loss parts, ranks {parts}; one process {ref['metrics']}; "
+        f"relative difference {rel} (limit {SPACE_LOSS_RTOL}; one process "
+        f"against itself {spread_loss:.3e})")
+    require(all(v <= SPACE_LOSS_RTOL for v in rel.values()),
+            f"space loss parts differ from the one-process step by more "
+            f"than rtol {SPACE_LOSS_RTOL}")
+    for k in parts:
+        require(float(res[1]["metrics"][k]) == parts[k],
+                f"{k} differs between the space ranks")
+    b0, b1 = res[0]["buffers"], res[1]["buffers"]
+    require(all(torch.equal(b0[k], b1[k]) for k in b0),
+            "running statistics differ between the space ranks")
+    require(torch.equal(res[0]["digest"], res[1]["digest"]),
+            "parameters differ between the space ranks")
+    stats_rel = max(float((b0[k] - ref["buffers"][k]).abs().max()
+                          / ref["buffers"][k].abs().max()) for k in b0)
+    update_gap = _update_gap(res[0]["params"], ref["params"], start)
+    log(f"space running statistics equal on both ranks, largest difference "
+        f"from the one-process step {stats_rel:.3e} of its layer's largest; "
+        f"largest update difference {update_gap:.4e} of the largest update "
+        f"(one process against itself {spread:.4e}; limit "
+        f"{DDP_UPDATE_GAP_MAX})")
+    require(update_gap <= DDP_UPDATE_GAP_MAX,
+            f"the space ranks' update differs from the one-process step's by "
+            f"{update_gap:.4e} of the largest update")
+    parity = _ddp_kernel_parity([(f"space rank {r}", x)
+                                 for r, x in enumerate(res)])
+    ranks = []
+    for r, x in enumerate(res):
+        step_ms = statistics.median(x["step_ms"])
+        calls, nbytes = x["exchanges"][-1]
+        log(f"space rank {r}: step {step_ms:.3f} ms median of "
+            f"{len(x['step_ms'])} {x['step_ms']}, {calls} row exchanges "
+            f"({nbytes / 2**20:.3f} MiB of buffers) a step, gradient "
+            f"all-reduce window "
+            f"{statistics.median(x['allreduce_window_ms']):.3f} ms, peak "
+            f"memory {x['peak_memory_bytes'] / 2**30:.3f} GiB")
+        ranks.append({"step_ms": step_ms, "steps_ms": x["step_ms"],
+                      "exchanges_a_step": calls,
+                      "exchange_bytes_a_step": nbytes,
+                      "allreduce_window_ms": statistics.median(
+                          x["allreduce_window_ms"]),
+                      "peak_memory_bytes": x["peak_memory_bytes"]})
+    # the halo cost by exchange: one step of rank 0 with every exchange
+    # timed alone (after a device synchronise), grouped by buffer shape
+    # (ranks, N, C, rows, W): one shape a layer kind and level
+    by_shape = {}
+    for shape, nbytes, sec in res[0]["exchange_trace"]:
+        entry = by_shape.setdefault(shape, [0, 0, 0.0])
+        entry[0] += 1
+        entry[1] += nbytes
+        entry[2] += sec * 1e3
+    halo = sorted(([list(k), *v] for k, v in by_shape.items()),
+                  key=lambda e: -e[3])
+    halo_ms = sum(e[3] for e in halo)
+    log(f"space rank 0, one step with every exchange timed alone: "
+        f"{len(res[0]['exchange_trace'])} exchanges, {halo_ms:.3f} ms; by "
+        f"buffer shape (ranks, N, C, rows, W): calls, bytes, ms:")
+    for shape, calls, nbytes, ms in halo[:10]:
+        log(f"  {shape}: {calls} calls, {nbytes / 2**20:.3f} MiB, "
+            f"{ms:.3f} ms")
+    launches = {k: sum(_by_kernel(x["launches"])[k]
+                       + _by_kernel(x["eval"]["launches"])[k] for x in res)
+                for k in _PARITY_NAMES.values()}
+
+    cli = _ddp_train_cli(device, tmp, root, space=SPACE_RANKS)
+    t0 = time.perf_counter()
+    dry_loss = run_mesh_step(4, 64, device.type, timeout=300)
+    dry_s = time.perf_counter() - t0
+    return launches, {
+        "ranks": SPACE_RANKS, "hw": SPACE_HW, "batch": SPACE_BATCH,
+        "backend": res[0]["backend"], "kernel_parity": parity,
+        "loss_parts": parts, "loss_rel_diff": rel,
+        "loss_rel_diff_one_process_rerun": spread_loss,
+        "stats_rel_diff": stats_rel, "update_rel_diff": update_gap,
+        "update_rel_diff_one_process_rerun": spread,
+        "eval_iou_inter": inter.tolist(), "eval_iou_union": union.tolist(),
+        "eval_iou_inter_one_process": evaluation["inter"].tolist(),
+        "eval_iou_union_one_process": evaluation["union"].tolist(),
+        "eval_pred_flips": flips, "eval_real_pixel_flips": flips_real,
+        "eval_real_pixels": int(real.size),
+        "per_rank": ranks, "exchange_ms_timed_alone": halo_ms,
+        "exchange_by_shape": halo, "train_cli": cli,
+        "dryrun_2x2_loss": dry_loss, "dryrun_2x2_seconds": dry_s}
 
 
 def main() -> int:
@@ -1705,11 +1983,14 @@ def main() -> int:
                                                      tmp)
         torch.cuda.empty_cache()
         ddp_launches, ddp = phase_data_parallel(device, tmp, root)
+        torch.cuda.empty_cache()
+        space_launches, space = phase_space(device, tmp, root)
     require("jax" not in sys.modules, "the port imported jax")
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
                "train_step": train_launches, "train_cli": cli_launches,
-               "saliency": saliency_launches, "ddp": ddp_launches}
+               "saliency": saliency_launches, "ddp": ddp_launches,
+               "space": space_launches}
 
     def launches(name):
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
@@ -1724,7 +2005,8 @@ def main() -> int:
                      "large": canny["large"],
                      "saliency_flips": saliency["k1_flips"],
                      "saliency_inputs": saliency["k1_inputs"],
-                     "ddp": ddp["kernel_parity"]["canny"]}),
+                     "ddp": ddp["kernel_parity"]["canny"],
+                     "space": space["kernel_parity"]["canny"]}),
             ("dense_block", "dense_block.cu",
              "saunet_tpu/ops/pallas/dense_block.py:256", dense,
              {"max_err_over_tol": dense["max_err_over_tol"],
@@ -1742,7 +2024,8 @@ def main() -> int:
              {"shape": [BATCH, SIZE, SIZE], "device_ms": warp["device_ms"],
               "library_device_ms": warp["library_device_ms"],
               "gather": warp["gather"],
-              "ddp": ddp["kernel_parity"]["warp"]})):
+              "ddp": ddp["kernel_parity"]["warp"],
+              "space": space["kernel_parity"]["warp"]})):
         total, counts = launches(name)
         require(total > 0, f"{name} was not launched on the main paths")
         kernels.append({
@@ -1766,7 +2049,7 @@ def main() -> int:
                            "inputs_ms")},
         "serving_ms_per_slice": ms_per_slice, "train": train,
         "train_cli": train_cli, "saliency": saliency,
-        "data_parallel": ddp}))
+        "data_parallel": ddp, "space": space}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

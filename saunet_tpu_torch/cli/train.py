@@ -12,18 +12,19 @@ on the CPU. The port has one stream layout and one dense-block layout:
 `--stream_impl` and `--encoder_concat` are accepted and run the same math.
 
 Data parallel: under `torchrun --nproc_per_node N -m
-saunet_tpu_torch.cli.train ...` each rank takes a card
+saunet_tpu_torch.cli.train ... [--space S]` each rank takes a card
 (`parallel.init_data_parallel`: NCCL when each rank has its own, gloo when
-ranks share one) and the run is the JAX package's run on a ('data',) mesh
-of N devices: the global batch is `--batch_size_per_device` x N, every
-rank samples the same global batches and takes its rows, and the step is
-the global-batch step (synced BatchNorm, the global batch's loss and
+ranks share one) and the run is the JAX package's run on a ('data',
+'space') mesh of N / S x S devices: the global batch is
+`--batch_size_per_device` x N / S, every rank samples the same global
+batches and takes its samples (and, with S > 1, its rows of their
+images: `--space` splits the image H axis), and the step is the
+global-batch step (synced BatchNorm, the global batch's loss and
 augmentation). Validation runs each rank's rows of each global batch and
 sums the IoU counts over the ranks. Rank 0 alone prints and writes
-checkpoints. On more than one node each rank samples its own shard
-(`DistributedShardSampler`). Without torchrun it is a one-device run.
-`--space` other than 1 raises: spatial parallelism is not ported yet
-(`parallel.SPACE_AXIS_ITEM`).
+checkpoints. On more than one node each 'data' index samples its own
+shard (`DistributedShardSampler`). Without torchrun it is a one-device
+run.
 """
 from __future__ import annotations
 
@@ -119,8 +120,8 @@ def parse_args(argv=None):
     # misc
     p.add_argument("--seed", default=304, type=int)
     p.add_argument("--space", default=1, type=int,
-                   help="spatial-parallel mesh axis size (1 only: the "
-                        "'space' axis is not ported yet)")
+                   help="spatial-parallel mesh axis size (ranks that split "
+                        "each image's rows)")
     p.add_argument("--resume", action="store_true",
                    help="resume exactly (weights, optimizer, step) from the "
                         "latest checkpoint in the run's ckpt dir")
@@ -130,7 +131,10 @@ def parse_args(argv=None):
     validate_spatial_partition(args.crop_size, args.space)
 
     n_dev = int(os.environ["WORLD_SIZE"]) if in_launched_rank() else 1
-    args.batch_size = args.batch_size_per_device * n_dev
+    if n_dev % args.space:
+        raise ValueError(f"--space {args.space} does not divide the "
+                         f"{n_dev} rank(s)")
+    args.batch_size = args.batch_size_per_device * (n_dev // args.space)
     args.id += f"-{args.unet_arch}-ndev{n_dev}-batchSize{args.batch_size}"
     args.id += f"-LR_unet{args.lr_encoder}-epoch{args.num_epoch}"
     args.ckpt = os.path.join(args.ckpt, args.id)
@@ -166,8 +170,9 @@ def evaluate(eval_step, state, images, labels, batch_size, num_class,
     last slice and the padding is masked out of the loss; histogram IoU
     is accumulated over the real slices. With `mesh`, `batch_size` is the
     global batch: each rank runs its rows of each batch (`eval_step` from
-    `make_eval_step(mesh=mesh)`), and the IoU counts are summed over the
-    ranks."""
+    `make_eval_step(mesh=mesh)`; on a 'space' axis its rows of their
+    images, normalised and given their edge targets whole first), and the
+    IoU counts are summed over the ranks."""
     inter = np.zeros(num_class)
     union = np.zeros(num_class)
     loss_meter = AverageMeter()
@@ -184,17 +189,22 @@ def evaluate(eval_step, state, images, labels, batch_size, num_class,
             mine = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
         else:
             rows = shard_rows(len(sel_p), mesh)
-            mine = shard_batch(host, mesh)
+            mine = shard_batch(host, mesh, split_rows=False)
         lab = mine["label"]
         batch = {"image": normalize_for_eval(mine["image"]), "label": lab,
                  "edge": edge_ground_truth(lab, num_class),
                  "valid": mine["valid"]}
+        if mesh is not None and mesh.space > 1:
+            lo, hi = mesh.rows(lab.shape[1])
+            batch = {k: v if v.dim() == 1 else v[:, lo:hi].contiguous()
+                     for k, v in batch.items()}
         _, preds, metrics = eval_step(state, batch)
         real = max(0, min(len(sel) - rows.start, len(preds)))
         preds = preds[:real].cpu().numpy()
+        lab = batch["label"][:real].cpu().numpy()
         loss_meter.update(float(metrics["loss"]), weight=len(sel))
-        for j, k in enumerate(sel_p[rows][:real]):
-            i_, u_ = intersection_and_union(preds[j], labels[k], num_class)
+        for j in range(real):
+            i_, u_ = intersection_and_union(preds[j], lab[j], num_class)
             inter += i_
             union += u_
     if mesh is not None:
@@ -212,7 +222,8 @@ def _quiet(*args, **kwargs):
 def main(argv=None):
     args = parse_args(argv)
     owns_group = in_launched_rank() and not dist.is_initialized()
-    mesh = init_data_parallel(args.device) if in_launched_rank() else None
+    mesh = (init_data_parallel(args.device, args.space)
+            if in_launched_rank() else None)
     log = _quiet if mesh is not None and mesh.rank else print
     log("Input arguments:")
     for k, v in sorted(vars(args).items()):
@@ -227,7 +238,8 @@ def main(argv=None):
     log(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
-          + (f", rank 0 of {mesh.world}" if mesh is not None else ""))
+          + (f", rank 0 of {mesh.world} as ('data' {mesh.data}, 'space' "
+           f"{mesh.space})" if mesh is not None else ""))
 
     # --- data ---------------------------------------------------------
     series = args.series_file or None
@@ -286,15 +298,19 @@ def main(argv=None):
     os.makedirs(args.ckpt, exist_ok=True)
 
     if mesh is not None and mesh.nodes > 1:
-        # each rank samples its own shard: its batches are its rows
-        sampler = DistributedShardSampler(len(train_imgs), seed=args.seed)
+        # each 'data' index samples its own shard: its batches are its
+        # samples (whole images: the augmentation keeps each rank's rows)
+        sampler = DistributedShardSampler(len(train_imgs),
+                                          num_shards=mesh.data,
+                                          shard_id=mesh.data_index,
+                                          seed=args.seed)
         batch_size, place = args.batch_size_per_device, to_device(device)
     else:
-        # every rank samples the same global batches and takes its rows
+        # every rank samples the same global batches and takes its samples
         sampler = RandomSampler(len(train_imgs), shuffle_rng)
         batch_size = args.batch_size
         place = (to_device(device) if mesh is None
-                 else lambda b: shard_batch(b, mesh))
+                 else lambda b: shard_batch(b, mesh, split_rows=False))
     loader = ArrayDataLoader(
         {"image": train_imgs, "label": train_labs.astype(np.int32)},
         batch_size=batch_size, sampler=sampler, place=place, prefetch=2)

@@ -191,20 +191,27 @@ def augment_with_coords(imgs: torch.Tensor, labels: torch.Tensor,
 
 
 def make_augment_fn(num_classes: int = 4, enable_deform: bool = True):
-    """(gen, {image (N, H, W[, 1]), label (N, H, W)}[, shard]) -> {image
-    (N, H, W, 3) f32, label (N, H, W) int32, edge (N, H, W, 1) f32}, on the
-    batch's device.
+    """(gen, {image (N, H, W[, 1]), label (N, H, W)}[, shard, rows]) ->
+    {image (N, H, W, 3) f32, label (N, H, W) int32, edge (N, H, W, 1) f32},
+    on the batch's device.
 
     shard (index, count): the batch is block `index` of `count` equal
-    blocks of a global batch (a rank's rows in the data-parallel step).
+    blocks of a global batch (a rank's samples in the data-parallel step).
     The draws are made for the whole global batch, as one process would
     make them, and this block's rows of them are used: every rank's
     generator is in the same state, so the ranks together augment the
-    global batch exactly as one process does."""
+    global batch exactly as one process does.
+
+    rows (lo, hi): keep only these image rows of the output (a rank's rows
+    on the 'space' axis). The warp reads the whole source image, and the
+    gamma, the z-score and the edge ground truth read the whole warped
+    image, so every rank of a 'space' group augments its samples whole
+    and keeps its rows: exactly the one-process rows."""
 
     def augment(gen: Optional[torch.Generator],
                 batch: Dict[str, torch.Tensor],
-                shard: Optional[Tuple[int, int]] = None
+                shard: Optional[Tuple[int, int]] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Dict[str, torch.Tensor]:
         if gen is None:
             raise ValueError("augment needs a torch.Generator")
@@ -215,11 +222,15 @@ def make_augment_fn(num_classes: int = 4, enable_deform: bool = True):
         index, count = shard or (0, 1)
         d = draw(gen, n * count, h, w, enable_deform, imgs.device)
         if count > 1:
-            rows = slice(index * n, (index + 1) * n)
-            d = {k: None if v is None else v[rows] for k, v in d.items()}
+            samples = slice(index * n, (index + 1) * n)
+            d = {k: None if v is None else v[samples] for k, v in d.items()}
         sy, sx, gamma = coords_from_draws(h=h, w=w, **d)
-        return augment_with_coords(imgs.float(), labels.to(torch.int32),
-                                   sy, sx, gamma, num_classes)
+        out = augment_with_coords(imgs.float(), labels.to(torch.int32),
+                                  sy, sx, gamma, num_classes)
+        if rows is not None:
+            out = {k: v[:, rows[0]:rows[1]].contiguous()
+                   for k, v in out.items()}
+        return out
 
     return augment
 

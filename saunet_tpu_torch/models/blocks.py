@@ -6,19 +6,114 @@ one-to-one map of names. Parameters stay f32; convs compute in the dtype of
 their input, as flax's `dtype=` does. Every ReLU that the JAX modules route
 through their `act` field goes through the module's `act` attribute
 (`F.relu`; interpret/saliency.py's guided model swaps it), and no other.
+
+The 'space' axis: inside `partition_space(model, mesh, height)` every
+module with a `space` attribute holds the rank's `SpaceShard`
+(parallel/mesh.py), and the input's image H axis is split over the ranks
+of the mesh's 'space' group, each holding `rows(level)` of every level.
+Each op that reads across a shard border then fetches the rows it reads by
+their global indices (`SpaceShard.fetch`, a differentiable exchange) and
+computes exactly the rows the one-process op computes: the k x k convs
+(`conv2d_rows`: a (k-1)/2-row halo, conv0's 3 above and 2 below), the
+transposed conv (a 1-row halo, the output cropped to the rank's rows), the
+2x2 pools (`pool_2x2`, a row of the neighbour where the split is odd) and
+the squeeze-and-excite mean (`mean_hw`, an all-reduce of the sum and the
+pixel count). Without a mesh nothing of this runs.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from .norm import BatchNorm2d
+
+
+@contextlib.contextmanager
+def partition_space(model: nn.Module, mesh, height: int):
+    """Within the block, every module of `model` with a `space` attribute
+    computes its rows of an input of `height` global rows split over the
+    'space' axis of `mesh` (a parallel.DataMesh): the counterpart of
+    sharding a batch's H axis over 'space'. `mesh` None or without a
+    'space' axis changes nothing."""
+    shard = None if mesh is None else mesh.space_shard(height)
+    if shard is None:
+        yield model
+        return
+    parts = [m for m in model.modules() if hasattr(type(m), "space")]
+    for m in parts:
+        m.space = shard
+    try:
+        yield model
+    finally:
+        for m in parts:
+            m.space = None
+
+
+def conv2d_rows(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: int, padding,
+                space) -> torch.Tensor:
+    """This rank's rows of a k x k conv (zero padding `padding`) of the
+    level `x` holds rows of: the rows each output row reads, fetched by
+    their global index (zeros beyond the level), convolved without H
+    padding."""
+    k, (ph, pw) = weight.shape[2], padding
+    h = space.level(x.shape[2])
+    ho = (h + 2 * ph - k) // stride + 1
+    window = space.fetch(x, h, ho, lambda lo, hi: (lo * stride - ph,
+                                                   (hi - 1) * stride - ph + k))
+    return F.conv2d(window, weight, bias, stride, (0, pw))
+
+
+def conv_transpose2d_rows(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor, space) -> torch.Tensor:
+    """This rank's rows of the (k 4, stride 2, padding 1) transposed conv
+    of a level of h rows: output row o reads input rows (o - 2) // 2 + 1
+    .. (o + 1) // 2, so the rank's rows [lo, hi) read [(lo - 1) // 2,
+    hi // 2 + 1); without H padding, window row 0 lands on output row
+    2 * ((lo - 1) // 2) - 1."""
+    h = space.level(x.shape[2])
+    lo, hi = space.rows(2 * h)
+    window = space.fetch(x, h, 2 * h,
+                         lambda lo, hi: ((lo - 1) // 2, hi // 2 + 1))
+    y = F.conv_transpose2d(window, weight, bias, stride=2, padding=(0, 1))
+    start = lo - 2 * ((lo - 1) // 2) + 1
+    return y[:, :, start:start + hi - lo]
+
+
+def pool_2x2(x: torch.Tensor, pool: Callable, space=None) -> torch.Tensor:
+    """`pool(x, 2)` (max or average, floor mode); on the 'space' axis, the
+    input rows 2 lo .. 2 hi - 1 of the rank's output rows [lo, hi)."""
+    if space is None:
+        return pool(x, 2)
+    h = space.level(x.shape[2])
+    return pool(space.fetch(x, h, h // 2, lambda lo, hi: (2 * lo, 2 * hi)),
+                2)
+
+
+def mean_hw(x: torch.Tensor, space=None) -> torch.Tensor:
+    """The (N, C, 1, 1) mean over H and W; on the 'space' axis the f32 sum
+    and the pixel count summed over the ranks (shards can be uneven, so
+    local means are not averaged), then cast to x's dtype."""
+    if space is None:
+        return x.mean(dim=(2, 3), keepdim=True)
+    n, c = x.shape[:2]
+    local = torch.cat([x.float().sum(dim=(2, 3)).reshape(-1),
+                       x.new_full((1,), x.shape[2] * x.shape[3],
+                                  dtype=torch.float32)])
+    total = all_reduce_sum(local, space.group)
+    return (total[:-1] / total[-1]).reshape(n, c, 1, 1).to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):
     """'SAME' conv (stride 1, or conv0's explicit padding) computing in the
     input's dtype from f32 weights."""
+
+    space = None
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
                  padding: int | None = None, bias: bool = True):
@@ -28,19 +123,27 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        w = self.weight.to(x.dtype)
+        if self.space is None or self.kernel_size[0] == self.stride[0] == 1:
+            return self._conv_forward(x, w, b)
+        return conv2d_rows(x, w, b, self.stride[0], self.padding,
+                           self.space)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """flax ConvTranspose(k=4, s=2, 'SAME'): the exact 2x upsampler, which
     is torch's (k=4, s=2, p=1) with the kernel flipped by the bridge."""
 
+    space = None
+
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 4, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype), stride=2, padding=1)
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.space is None:
+            return F.conv_transpose2d(x, w, b, stride=2, padding=1)
+        return conv_transpose2d_rows(x, w, b, self.space)
 
 
 class ConvBNRelu(nn.Module):
@@ -60,6 +163,8 @@ class SEModule(nn.Module):
     """Squeeze-and-excite: global avgpool -> 1x1 reduce -> ReLU -> 1x1
     expand -> sigmoid -> scale."""
 
+    space = None
+
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         self.act = F.relu
@@ -67,7 +172,7 @@ class SEModule(nn.Module):
         self.fc2 = Conv2d(channels // reduction, channels)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+        s = mean_hw(x, self.space)
         s = self.fc2(self.act(self.fc1(s)))
         return x * torch.sigmoid(s)
 
@@ -175,5 +280,5 @@ class DecoderBlock(nn.Module):
         return self.up(self.conv(x))
 
 
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    return F.max_pool2d(x, 2)
+def max_pool_2x2(x: torch.Tensor, space=None) -> torch.Tensor:
+    return pool_2x2(x, F.max_pool2d, space)

@@ -11,7 +11,9 @@ The dense blocks concatenate layer by layer (the JAX package's 'chain'
 layout, its default); its 'buffer' and 'fused' layouts store the same math
 differently for the TPU and are not ported. The module names are
 torchvision's, so `load_pretrained_encoder` maps a densenet121 state_dict
-by name.
+by name. Under `blocks.partition_space` conv0 (7x7, stride 2: 3 rows
+above and 2 below), the 3x3 convs and the transitions' pools read across
+the 'space' shard borders; BatchNorm reduces over the grid.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Conv2d
+from .blocks import Conv2d, pool_2x2
 from .norm import BatchNorm2d
 
 DENSENET121_BLOCKS = (6, 12, 24, 16)
@@ -65,7 +67,10 @@ class DenseBlock(nn.Module):
 
 
 class Transition(nn.Module):
-    """BN-ReLU-Conv1x1(out) -> AvgPool 2x2."""
+    """BN-ReLU-Conv1x1(out) -> AvgPool 2x2 (on the 'space' axis, with the
+    neighbour's row where a level's rows split oddly)."""
+
+    space = None
 
     def __init__(self, cin: int, out_features: int):
         super().__init__()
@@ -74,7 +79,8 @@ class Transition(nn.Module):
         self.conv = Conv2d(cin, out_features, bias=False)
 
     def forward(self, x):
-        return F.avg_pool2d(self.conv(self.act(self.norm(x))), 2)
+        return pool_2x2(self.conv(self.act(self.norm(x))), F.avg_pool2d,
+                        self.space)
 
 
 class DenseNetEncoder(nn.Module):

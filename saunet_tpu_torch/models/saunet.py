@@ -8,6 +8,12 @@ Parameters stay f32; `dtype` is the compute dtype, as flax's `dtype=`.
 The TPU package's lane-packed stream (`stream_impl="packed"`) is a TPU
 memory layout with the same math and the same parameter tree; the port
 computes that math once, and its tests hold it against both layouts.
+
+Under `blocks.partition_space` (the 'space' axis) the model holds the
+rank's `SpaceShard` too: its resizes run on global rows, the center
+block's max pool fetches the rows it reads, and Canny runs on the rank's
+rows and CANNY_HALO rows either side (no farther than the image), the
+design of the JAX package's banded Canny (K2), whose result is exact.
 """
 from __future__ import annotations
 
@@ -31,11 +37,36 @@ from .blocks import (
 )
 from .densenet import DenseNetEncoder
 
+#: Canny's reach in rows: Sobel and non-maximum suppression 2, then one a
+#: hysteresis round, of the 8 both Canny functions run by default
+#: (saunet_tpu/ops/pallas/canny.py's band halo)
+CANNY_HALO = 8 + 2
+
+
+def canny_rows(gray: torch.Tensor, space, edges) -> torch.Tensor:
+    """This rank's rows of `edges` (NHW1 gray -> NHW1 edges, a Canny) of
+    the image whose rows `gray` holds on the 'space' axis: `edges` of the
+    rank's rows and CANNY_HALO rows either side, cut at the image's
+    border, cropped to the rank's rows. Exact: a band's false border
+    reaches CANNY_HALO rows in."""
+    h = space.level(gray.shape[1])
+    lo, hi = space.rows(h)
+
+    def band(lo, hi):
+        return max(lo - CANNY_HALO, 0), min(hi + CANNY_HALO, h)
+
+    with torch.no_grad():
+        out = edges(space.fetch(gray, h, h, band, dim=1))
+    start = lo - band(lo, hi)[0]
+    return out[:, start:start + hi - lo]
+
 
 class SAUNet(nn.Module):
     """`edge_kernel`: "auto" runs Canny through its kernel wrapper (the
     CUDA kernel on a GPU, the plain version on the CPU); "plain" always
     runs the plain version."""
+
+    space = None
 
     def __init__(self, num_classes: int = NUM_CLASSES,
                  num_filters: int = NUM_FILTERS,
@@ -88,9 +119,17 @@ class SAUNet(nn.Module):
         """NHW1 gray -> NHW1 edges. The input is detached: the kernel has
         no backward, and the reference's cv2 Canny is gradient-opaque."""
         gray = gray.detach()
-        if self.edge_kernel == "plain":
-            return canny_edges(gray, self.canny_low, self.canny_high)
-        return canny_edges_cuda(gray, self.canny_low, self.canny_high)
+        edges = canny_edges if self.edge_kernel == "plain" \
+            else canny_edges_cuda
+        if self.space is None:
+            return edges(gray, self.canny_low, self.canny_high)
+        return canny_rows(gray, self.space, lambda band: edges(
+            band, self.canny_low, self.canny_high))
+
+    def _height(self, t: torch.Tensor) -> int:
+        """The global rows of NCHW `t`'s level."""
+        return t.shape[2] if self.space is None else \
+            self.space.level(t.shape[2])
 
     def forward(self, x: torch.Tensor, return_att: bool = False):
         """x: NCHW image. Returns (logits f32, edge_out[, att maps])."""
@@ -101,14 +140,14 @@ class SAUNet(nn.Module):
     def shape_stream(self, taps: Sequence[torch.Tensor], x: torch.Tensor):
         """(f2..f5, x) -> (edge_out f32 in (0, 1), (g1, g2, g3))."""
         conv2, conv3, conv4, conv5 = taps
-        hw = x.shape[2:]
-        ss = resize_bilinear(self.d0(conv2), hw)
+        hw, sp = (self._height(x), x.shape[3]), self.space
+        ss = resize_bilinear(self.d0(conv2), hw, sp)
         ss = self.d1(self.res1(ss))
-        ss, g1 = self.gate1(ss, resize_bilinear(self.c3(conv3), hw))
+        ss, g1 = self.gate1(ss, resize_bilinear(self.c3(conv3), hw, sp))
         ss = self.d2(self.res2(ss))
-        ss, g2 = self.gate2(ss, resize_bilinear(self.c4(conv4), hw))
+        ss, g2 = self.gate2(ss, resize_bilinear(self.c4(conv4), hw, sp))
         ss = self.d3(self.res3(ss))
-        ss, g3 = self.gate3(ss, resize_bilinear(self.c5(conv5), hw))
+        ss, g3 = self.gate3(ss, resize_bilinear(self.c5(conv5), hw, sp))
         return torch.sigmoid(self.fuse(ss).float()), (g1, g2, g3)
 
     def shape_stream_inputs(self, taps: Sequence[torch.Tensor],
@@ -118,11 +157,11 @@ class SAUNet(nn.Module):
         (N, H, W, 67) NHWC tensor in the taps' dtype, channels contiguous
         per pixel (ops/cuda/shape_stream.py reads it so)."""
         conv2, conv3, conv4, conv5 = taps
-        hw = x.shape[2:]
-        parts = [resize_bilinear(self.d0(conv2), hw),
-                 resize_bilinear(self.c3(conv3), hw),
-                 resize_bilinear(self.c4(conv4), hw),
-                 resize_bilinear(self.c5(conv5), hw)]
+        hw, sp = (self._height(x), x.shape[3]), self.space
+        parts = [resize_bilinear(self.d0(conv2), hw, sp),
+                 resize_bilinear(self.c3(conv3), hw, sp),
+                 resize_bilinear(self.c4(conv4), hw, sp),
+                 resize_bilinear(self.c5(conv5), hw, sp)]
         return torch.cat(parts, dim=1).permute(0, 2, 3, 1).contiguous()
 
     def _dualatt_decoder(self, taps):
@@ -130,18 +169,19 @@ class SAUNet(nn.Module):
         conv2, conv3, conv4, conv5 = taps
 
         def up2(t):
-            return resize_bilinear(t, (t.shape[2] * 2, t.shape[3] * 2))
+            return resize_bilinear(t, (self._height(t) * 2, t.shape[3] * 2),
+                                   self.space)
 
-        center = self.center(max_pool_2x2(conv5))
+        center = self.center(max_pool_2x2(conv5, self.space))
         dec5, att5 = self.dec5(center, conv5)
         dec4, att4 = self.dec4(dec5, up2(conv4))
         dec3, att3 = self.dec3(dec4, up2(conv3))
         dec2, att2 = self.dec2(dec3, up2(conv2))
         return dec2, (att2, att3, att4, att5)
 
-    @staticmethod
-    def _upsampled_atts(atts, gates):
-        out = [resize_bilinear(a, (a.shape[2] * s, a.shape[3] * s))
+    def _upsampled_atts(self, atts, gates):
+        out = [resize_bilinear(a, (self._height(a) * s, a.shape[3] * s),
+                               self.space)
                for a, s in zip(atts, (2, 4, 8, 16))]
         return out + list(gates)
 
@@ -164,7 +204,9 @@ class SAUNet(nn.Module):
         if edge_out is None:
             edge_out, gates = self.shape_stream(taps, x)
 
-        gray = image_to_gray255(x.permute(0, 2, 3, 1))
+        gray = image_to_gray255(x.permute(0, 2, 3, 1),
+                                None if self.space is None
+                                else self.space.group)
         canny = self._canny(gray).to(dt).permute(0, 3, 1, 2)
         acts = torch.sigmoid(self.cw(torch.cat([edge_out.to(dt), canny], 1)))
         edge = self.expand(acts)

@@ -14,6 +14,7 @@ Layouts are the JAX package's: gray is NHW1 (or NHW), images NHWC.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 TAN225 = 0.4142135623730951
@@ -67,10 +68,17 @@ def canny_edges(gray: torch.Tensor, low: float = 10.0, high: float = 100.0,
     return (strong * 255.0)[..., None]
 
 
-def image_to_gray255(x: torch.Tensor) -> torch.Tensor:
-    """NHWC image -> NHW1 grayscale rescaled to [0, 255] per sample."""
+def image_to_gray255(x: torch.Tensor, group=None) -> torch.Tensor:
+    """NHWC image -> NHW1 grayscale rescaled to [0, 255] per sample. With
+    `group` (the 'space' ranks holding rows of the same images) each
+    sample's minimum and maximum are taken over every rank's rows (one
+    all-reduce; not differentiable: the gray feeds Canny alone)."""
     xf = x.float()
     g = xf.sum(dim=-1, keepdim=True) / xf.shape[-1]
     lo = g.amin(dim=(1, 2, 3), keepdim=True)
     hi = g.amax(dim=(1, 2, 3), keepdim=True)
+    if group is not None:
+        ext = torch.stack([hi, -lo]).detach()
+        dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=group)
+        hi, lo = ext[0], -ext[1]
     return (g - lo) / (hi - lo + 1e-8) * 255.0

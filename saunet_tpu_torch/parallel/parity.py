@@ -1,11 +1,13 @@
-"""Rank-side cases of the data-parallel checks. Each runs on one rank of a
+"""Rank-side cases of the parallel checks. Each runs on one rank of a
 `launch.run_ranks` call and returns, on the CPU, what the parent holds
-against the one-process steps: tests/test_torch_parallel.py on the CPU
-(gloo ranks) and chip_smoke.py's data-parallel phase on the card.
+against the one-process steps: tests/test_torch_parallel.py and
+tests/test_torch_space.py on the CPU (gloo ranks) and chip_smoke.py's
+data-parallel and 'space' phases on the card.
 
 `weights` is the path of a model state_dict (`torch.save`d by the parent)
 or an int seed for `init_random_`; `batch` is the GLOBAL batch as numpy
-arrays, of which each rank takes its rows (`shard_batch`).
+arrays, of which each rank takes its rows (`shard_batch`). `space` lays
+the ranks out as (world // space) x space (`DataMesh.with_space`).
 """
 from __future__ import annotations
 
@@ -21,9 +23,21 @@ from torch import nn
 
 from ..data.augment import make_augment_fn
 from ..models import build_unet
+from ..models.blocks import (
+    Conv2d,
+    ConvTranspose2d,
+    SEModule,
+    max_pool_2x2,
+    partition_space,
+    pool_2x2,
+)
+from ..models.densenet import DenseBlock
 from ..models.init import init_random_
 from ..models.norm import sync_batch_norm
-from ..ops.cuda import KERNELS
+from ..models.saunet import canny_rows
+from ..ops.cuda import KERNELS, canny_edges_cuda
+from ..ops.edge import image_to_gray255
+from ..ops.resize import resize_bilinear
 from ..train import (
     create_train_state,
     intersection_and_union,
@@ -31,6 +45,7 @@ from ..train import (
     make_train_step,
     radam,
 )
+from .collectives import all_reduce_sum, exchange_rows
 from .mesh import DataMesh, shard_batch, shard_rows
 from .shard_map_step import make_shard_map_train_step
 
@@ -185,10 +200,11 @@ def param_digest(model: nn.Module) -> torch.Tensor:
 def _first_step(mesh: DataMesh, weights: Weights,
                 batch: Dict[str, np.ndarray], lr: float, dtype: str,
                 augment_seed: Optional[int], fix_bn: bool = False,
-                shard_map: bool = False, hook=None):
+                shard_map: bool = False, hook=None, space: int = 1):
     """Build the model, state and step, and take one step on this rank's
     rows: (result, state, step, rows, gen). `hook`: a DDP comm hook for
     the global-batch step's gradient buckets."""
+    mesh = mesh.with_space(space)
     model = build_model(weights, dtype)
     tx = radam(lr)
     state = create_train_state(model, tx, mesh=mesh)
@@ -200,7 +216,7 @@ def _first_step(mesh: DataMesh, weights: Weights,
                                mesh=mesh)
         if hook is not None:
             step.net.register_comm_hook(mesh.group, hook)
-    rows = shard_batch(batch, mesh)
+    rows = shard_batch(batch, mesh, split_rows=augment is None)
     gen = (torch.Generator(device=mesh.device).manual_seed(augment_seed)
            if augment is not None else None)
     zero_launches()
@@ -217,13 +233,13 @@ def _first_step(mesh: DataMesh, weights: Weights,
 def train_case(mesh: DataMesh, weights: Weights, batch: Dict[str, np.ndarray],
                lr: float = 1e-3, dtype: str = "float32", fix_bn: bool = False,
                augment_seed: Optional[int] = None,
-               shard_map: bool = False) -> dict:
+               shard_map: bool = False, space: int = 1) -> dict:
     """One step of the global-batch step (or, `shard_map`, of the
     per-rank-loss step) from `weights` on this rank's rows of `batch`:
     its metrics, launches, BatchNorm running statistics, a digest of the
     parameters and, on rank 0, the parameters."""
     return _first_step(mesh, weights, batch, lr, dtype, augment_seed,
-                       fix_bn=fix_bn, shard_map=shard_map)[0]
+                       fix_bn=fix_bn, shard_map=shard_map, space=space)[0]
 
 
 def iou_counts(preds: np.ndarray, labels: np.ndarray, valid: np.ndarray,
@@ -239,10 +255,12 @@ def iou_counts(preds: np.ndarray, labels: np.ndarray, valid: np.ndarray,
 
 
 def eval_case(mesh: DataMesh, weights: Weights, batch: Dict[str, np.ndarray],
-              dtype: str = "float32", num_class: int = 4) -> dict:
+              dtype: str = "float32", num_class: int = 4,
+              space: int = 1) -> dict:
     """The mesh eval step on this rank's rows of `batch` (with its `valid`
     entry): this rank's preds, the global metrics, the launches, and the
     histogram IoU counts of this rank's real rows."""
+    mesh = mesh.with_space(space)
     model = build_model(weights, dtype)
     state = create_train_state(model, radam(0.0), mesh=mesh)
     rows = shard_batch(batch, mesh)
@@ -267,6 +285,120 @@ def augment_case(mesh: DataMesh, batch: Dict[str, np.ndarray],
     out = make_augment_fn()(gen, rows, shard=(mesh.rank, mesh.world))
     return {"rows": (shard_rows(len(batch["label"]), mesh).start,
                      len(rows["label"])), **_cpu(out)}
+
+
+#: the op oracles of the 'space' axis: name -> input channels; `space_op`
+#: builds each from a fixed seed, the same on every rank and in the parent
+SPACE_OPS = {"conv3x3_twice": 3, "conv0": 3, "conv_transpose": 3,
+             "max_pool": 3, "avg_pool": 3, "resize_x2": 3, "resize_x4": 3,
+             "resize_x16": 3, "se": 16}
+
+
+def space_op(name: str):
+    """op(x, space) -> y for NCHW f32 `x` (its rows on the 'space' axis,
+    or the whole tensor with `space` None)."""
+    g = torch.Generator().manual_seed(sorted(SPACE_OPS).index(name))
+
+    def seeded(module):
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+        return module
+
+    def resize(factor):
+        def op(x, space):
+            h = x.shape[2] if space is None else space.level(x.shape[2])
+            return resize_bilinear(x, (h * factor, x.shape[3] * factor),
+                                   space)
+        return op
+
+    if name == "conv3x3_twice":
+        c1, c2 = seeded(Conv2d(3, 8, 3)), seeded(Conv2d(8, 4, 3))
+
+        def op(x, space):
+            c1.space = c2.space = space
+            return c2(torch.relu(c1(x)))
+        return op
+    if name in ("conv0", "conv_transpose", "se"):
+        m = seeded({"conv0": lambda: Conv2d(3, 8, 7, stride=2, padding=3,
+                                            bias=False),
+                    "conv_transpose": lambda: ConvTranspose2d(3, 4),
+                    "se": lambda: SEModule(16, 4)}[name]())
+
+        def op(x, space):
+            for part in m.modules():
+                if hasattr(type(part), "space"):
+                    part.space = space
+            return m(x)
+        return op
+    if name == "max_pool":
+        return lambda x, space: max_pool_2x2(x, space)
+    if name == "avg_pool":
+        return lambda x, space: pool_2x2(x, torch.nn.functional.avg_pool2d,
+                                         space)
+    return resize(int(name.split("_x")[1]))
+
+
+def _rows_of(t: np.ndarray, mesh: DataMesh, dim: int) -> torch.Tensor:
+    """This rank's samples and rows (along `dim`) of a global array."""
+    t = t[shard_rows(len(t), mesh)]
+    lo, hi = mesh.rows(t.shape[dim])
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(t, np.arange(lo, hi), axis=dim)))
+
+
+def space_ops_case(mesh: DataMesh, inputs: Dict[str, np.ndarray],
+                   cotangents: Dict[str, np.ndarray], space: int,
+                   image: Optional[np.ndarray] = None) -> dict:
+    """Each op of SPACE_OPS on this rank's rows of `inputs[name]` (global
+    NCHW) on the grid: its rows of the output and of the input gradient
+    for the cotangent `cotangents[name]` (global, the output's shape);
+    and, with `image` (global NHWC), the rows of its Canny (real
+    thresholds 10 and 100) through the rank's gray and band. Also the
+    number of row exchanges this ran."""
+    mesh = mesh.with_space(space)
+    out = {}
+    calls = exchange_rows.calls
+    for name, x in inputs.items():
+        xr = _rows_of(x, mesh, 2).requires_grad_()
+        shard = mesh.space_shard(x.shape[2])
+        y = space_op(name)(xr, shard)
+        (y * _rows_of(cotangents[name], mesh, 2)).sum().backward()
+        out[name] = (y.detach(), xr.grad)
+    if image is not None:
+        shard = mesh.space_shard(image.shape[1])
+        gray = image_to_gray255(_rows_of(image, mesh, 1), shard.group)
+        out["canny"] = canny_rows(gray, shard, lambda band: canny_edges_cuda(
+            band, 10.0, 100.0))
+    out["exchanges"] = exchange_rows.calls - calls
+    return out
+
+
+def dense_block_case(mesh: DataMesh, x: np.ndarray, layers: int,
+                     seed: int, space: int) -> dict:
+    """A train-mode DenseBlock(x.shape[1], layers) from `seed` on this
+    rank's rows of `x` (global NCHW) on the grid, BatchNorm synced over
+    it, loss = sum(out^2) / out.numel() of the whole output: this rank's
+    rows of the output, the parameter gradients averaged over the ranks
+    (as DDP averages them: the true gradient) and the running
+    statistics."""
+    mesh = mesh.with_space(space)
+    block = init_random_(DenseBlock(x.shape[1], layers),
+                         torch.Generator().manual_seed(seed)).train()
+    xr = _rows_of(x, mesh, 2)
+    with sync_batch_norm(block, mesh.group), \
+            partition_space(block, mesh, x.shape[2]):
+        y = block(xr)
+    loss = all_reduce_sum(torch.sum(y * y), mesh.group) / y.new_tensor(
+        float(np.prod(x.shape[:1]) * y.shape[1] * np.prod(x.shape[2:])))
+    loss.backward()
+    grads = {}
+    for k, p in block.named_parameters():
+        g = p.grad.clone()
+        dist.all_reduce(g, group=mesh.group)
+        grads[k] = g / mesh.world
+    return {"out": y.detach(), "loss": float(loss.detach()), "grads": grads,
+            "buffers": bn_buffers(block)}
 
 
 def dryrun_case(mesh: DataMesh, hw: int) -> float:
@@ -344,10 +476,13 @@ def timed_case(mesh: DataMesh, weights: Weights,
                eval_batch: Optional[Dict[str, np.ndarray]] = None,
                augment_seed: int = 8, dtype: str = "bfloat16",
                lr: float = 1e-4, timed_steps: int = 3,
-               plain_turns: int = 0) -> dict:
-    """The data-parallel phase's rank side on the card: the mesh eval step
-    on this rank's rows of `eval_batch` (launches, IoU counts) from
-    `weights`; then the global-batch step with augmentation, its first
+               plain_turns: int = 0, space: int = 1,
+               eval_dtype: Optional[str] = None) -> dict:
+    """The data-parallel and 'space' phases' rank side on the card, on the
+    (world // space) x space grid, TF32 off: the mesh eval step on this
+    rank's rows of `eval_batch` (launches, IoU counts) from `weights` in
+    `eval_dtype` (default `dtype`); then the global-batch step with
+    augmentation, its first
     step's metrics, launches, BatchNorm statistics and parameter digest
     (and rank 0's parameters). Every K1, K3 and K5 call of the eval and of
     the first step is recorded and held against the kernel's plain version
@@ -356,7 +491,9 @@ def timed_case(mesh: DataMesh, weights: Weights,
     `timed_steps` more steps on the host clock (median ms), the peak
     memory, and the gradient all-reduce time per step: the host window
     from the first bucket's launch to the last bucket's completion, and,
-    under NCCL, the NCCL kernels' device time.
+    under NCCL, the NCCL kernels' device time; the row exchanges (count
+    and bytes) of each timed step, and one more step with every exchange
+    timed alone (`exchange_trace`: buffer shape, bytes, seconds).
     With `plain_turns`, the one-process `make_train_step` on another copy
     of the model is timed against the mesh step in turns, with and
     without synced BatchNorm (plain, synced, mesh, mesh, synced, plain,
@@ -364,9 +501,13 @@ def timed_case(mesh: DataMesh, weights: Weights,
     mesh - synced."""
     out = {"backend": mesh.backend, "device": str(mesh.device)}
     cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     if eval_batch is not None:
         with recording_kernel_calls() as seen:
-            out["eval"] = eval_case(mesh, weights, eval_batch, dtype)
+            out["eval"] = eval_case(mesh, weights, eval_batch,
+                                    eval_dtype or dtype, space=space)
         out["eval"].update(parity=kernel_parity(seen),
                            parity_rows=kernel_parity(seen, CLI_ROWS))
         del seen
@@ -376,7 +517,7 @@ def timed_case(mesh: DataMesh, weights: Weights,
     with recording_kernel_calls() as seen:
         first, state, step, rows, gen = _first_step(
             mesh, weights, batch, lr, dtype, augment_seed,
-            hook=_timed_allreduce_hook(spans))
+            hook=_timed_allreduce_hook(spans), space=space)
     out.update(first, parity=kernel_parity(seen),
                parity_rows=kernel_parity(seen, CLI_ROWS))
     del seen
@@ -389,16 +530,23 @@ def timed_case(mesh: DataMesh, weights: Weights,
 
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
-    times, windows = [], []
+    times, windows, exchanges = [], [], []
     for _ in range(timed_steps):
         spans.clear()
+        calls, nbytes = exchange_rows.calls, exchange_rows.bytes
         t0 = time.perf_counter()
         one()
         times.append((time.perf_counter() - t0) * 1e3)
         windows.append((max(b for _, b in spans) - min(a for a, _ in spans))
                        * 1e3)
+        exchanges.append((exchange_rows.calls - calls,
+                          exchange_rows.bytes - nbytes))
+    if space > 1:
+        exchange_rows.trace = []
+        one()
+        out["exchange_trace"], exchange_rows.trace = exchange_rows.trace, None
     out.update(step_ms=times, allreduce_window_ms=windows,
-               buckets=len(spans),
+               buckets=len(spans), exchanges=exchanges,
                peak_memory_bytes=(torch.cuda.max_memory_allocated(
                    mesh.device) if cuda else None))
     if mesh.backend == "nccl":

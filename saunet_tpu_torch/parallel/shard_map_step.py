@@ -15,6 +15,9 @@ hand as `make_shard_map_train_step` places them:
                  ranks draw distinct augmentations.
 
 On a batch that is the same on every rank it equals the global-batch step.
+It is a 'data'-axis step, as the JAX one (its shard_map maps the batch over
+'data' alone and `BatchNorm(axis_name='data')` reduces over 'data'): given
+a grid with a 'space' axis it raises.
 """
 from __future__ import annotations
 
@@ -38,6 +41,13 @@ def make_shard_map_train_step(model: nn.Module, tx: Callable,
     """`step(state, batch, gen=None) -> (state, metrics)` with
     `make_train_step`'s signature: `batch` is this rank's rows, the state
     from `create_train_state(..., mesh=mesh)`."""
+    if mesh.space > 1:
+        raise ValueError(
+            f"make_shard_map_train_step: a ('data' {mesh.data}, 'space' "
+            f"{mesh.space}) grid; the per-rank-loss step maps the batch "
+            f"over 'data' alone, as the JAX shard_map step does (whole "
+            f"images a rank, statistics over 'data'): use "
+            f"train.make_train_step(mesh=...) for the 'space' axis")
     net = ddp(model, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],

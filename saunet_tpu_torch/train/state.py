@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..models.blocks import partition_space
 from ..models.fused_encoder import encoder_apply_fused, fold_encoder
 from ..models.norm import sync_batch_norm
 from ..parallel.mesh import DataMesh, broadcast_module_
@@ -137,8 +138,12 @@ def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
     gradients: the reference's --fix_bn.
 
     mesh: the global-batch step over the ranks (module docstring); `batch`
-    is then this rank's rows, `gen` in the same state on every rank, and
-    the metrics are the global batch's. The state must come from
+    is then this rank's samples (`parallel.shard_batch`), `gen` in the
+    same state on every rank, and the metrics are the global batch's. On a
+    'space' axis the batch holds the rank's rows of its samples
+    (`shard_batch`'s default), or, with `augment_fn`, its samples whole
+    (`split_rows=False`: the warp reads the whole source image), of which
+    the augmentation keeps the rank's rows. The state must come from
     `create_train_state(..., mesh=mesh)`."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     group = None if mesh is None else mesh.group
@@ -151,14 +156,21 @@ def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
             raise ValueError("make_train_step: state holds another "
                              "optimizer")
         batch = _batch_on(batch, state.device)
+        height = batch["image"].shape[1]
         if augment_fn is not None:
             batch = (augment_fn(gen, batch) if mesh is None else
-                     augment_fn(gen, batch, shard=(mesh.rank, mesh.world)))
+                     augment_fn(gen, batch,
+                                shard=(mesh.data_index, mesh.data),
+                                rows=(mesh.rows(height) if mesh.space > 1
+                                      else None)))
+        elif mesh is not None:
+            height = mesh.global_rows(height)
         model.train()
         if fix_bn:
             for m in bns:
                 m.eval()
-        with sync_batch_norm(model, group):
+        with sync_batch_norm(model, group), \
+                partition_space(model, mesh, height):
             seg, edge = net(batch["image"].permute(0, 3, 1, 2))
         seg = seg.permute(0, 2, 3, 1)
         total, parts = dual_loss(seg, edge.permute(0, 2, 3, 1),
@@ -209,19 +221,23 @@ def make_eval_step(model: nn.Module, num_class: int = 4,
     `jaccard`. The encoder runs on the dense-block kernel for a bf16 model
     on the card (`use_fused_encoder`).
 
-    mesh: `batch` is this rank's rows of a global batch; probs and preds
-    are this rank's, the loss and the metrics the global batch's (eval
-    BatchNorm reads the running statistics, so the forward needs no
-    collective)."""
+    mesh: `batch` is this rank's rows of a global batch (its rows of its
+    samples on a 'space' axis); probs and preds are this rank's, the loss
+    and the metrics the global batch's (eval BatchNorm reads the running
+    statistics, so BatchNorm needs no collective; the 'space' axis's
+    exchanges still run). A 'space' axis runs the plain encoder."""
     group = None if mesh is None else mesh.group
+    space = mesh is not None and mesh.space > 1
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         _check_state(state, model, "make_eval_step")
         batch = _batch_on(batch, state.device)
         images = batch["image"]
-        fused = use_fused_encoder(model, images)
+        fused = use_fused_encoder(model, images) and not space
+        height = images.shape[1] if mesh is None else \
+            mesh.global_rows(images.shape[1])
         model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), partition_space(model, mesh, height):
             seg, edge = _forward_eval(
                 model, state.folded_encoder() if fused else None, images,
                 fused)

@@ -147,6 +147,31 @@ def golden_batch() -> dict:
             "edge": (rs.rand(n, s, s, 1) < 0.2).astype(np.float32)}
 
 
+GOLDEN_SPACE_TRAIN_STEP = os.path.join(os.path.dirname(__file__),
+                                       "torch_golden",
+                                       "train_step_64_space.npz")
+# The 'space' golden: the same seeds, weights and learning rate at 64^2 (the
+# smallest crop whose deepest dense block keeps 2 rows a shard at space 2)
+# on a ('data' 2, 'space' 2) mesh; tests/torch_golden/
+# make_train_step_64_space.py writes it.
+SPACE_SIZE, SPACE_BORDER = 64, 32
+
+
+def space_batch() -> dict:
+    """`golden_batch`'s draws at SPACE_SIZE, with high-contrast rows on
+    either side of the 'space' shard border at SPACE_SIZE // 2 (2.0 above,
+    -2.0 below, every channel): a conv, pool or resize that reads a wrong
+    or zero halo row there moves the result by far more than rounding."""
+    rs = np.random.RandomState(GOLDEN_SEED + 1)
+    n, s = GOLDEN_BATCH, SPACE_SIZE
+    batch = {"image": rs.randn(n, s, s, 3).astype(np.float32),
+             "label": rs.randint(0, 4, size=(n, s, s)).astype(np.int32),
+             "edge": (rs.rand(n, s, s, 1) < 0.2).astype(np.float32)}
+    batch["image"][:, SPACE_BORDER - 1] = 2.0
+    batch["image"][:, SPACE_BORDER] = -2.0
+    return batch
+
+
 def flat_leaves(tree: dict) -> dict:
     """{'a/b/c': array} for a nested dict of arrays."""
     import jax
