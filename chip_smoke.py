@@ -66,6 +66,23 @@ Phases, each fatal on failure (exit code 1, no result line):
      after: 1 warp and 1 Canny per train step, 1 Canny and 4 dense blocks
      per validation batch. The checkpoint is then served by test_and_pack
      (its default --visualize: one PNG a slice).
+  8b. train layouts and resume: phase 7's weights and batch (b64 at 224^2,
+     bf16, augmentation on), one step each with every dense block in
+     'chain', 'buffer', 'fused', 'chain' + remat and 'fused' + remat
+     (counters zeroed just before and read just after each: 1 warp and 1
+     Canny): loss parts within LAYOUT_LOSS_RTOL of the 'chain' step's, the
+     update within LAYOUT_UPDATE_GAP_MAX of its largest update (beside
+     'chain' against itself), the running statistics after a remat step
+     equal to those without remat, with num_batches_tracked 1; the median
+     ms of 5 steps after 2 warm-up and the peak memory of each; one step
+     at a larger batch in 'chain', 'chain' + remat and 'fused'
+     (HEADROOM: its peak, or out of memory). A JAX-layout train state (the
+     tree `utils.msgpack.load` returns, built from numpy) restored onto
+     the card (moments f32 on the card) and onto the CPU, one f32 step of
+     each at 64^2, batch 4: loss parts within rtol 1e-4, the update within
+     DDP_UPDATE_GAP_MAX. Then `cli.train --encoder_concat fused` for one
+     epoch on phase 8's volumes and `--resume` for the next (epoch 2 from
+     epoch 1's step; each epoch's launches as phase 8's).
   9. saliency: `saunet_tpu_torch.cli.saliency` on that checkpoint and a
      validation slice for each method at the CLI's defaults (256^2,
      f32, n = 50), four PNGs each; counters zeroed just before and read
@@ -1127,6 +1144,385 @@ def phase_train_cli(device, tmp):
                       "val_batches": val_batches}, root, ckpt
 
 
+# 8b. the dense blocks' train layouts and remat, at phase 7's step: every
+# layout computes the same math, and 'fused' takes flax's E[x^2] - E[x]^2
+# statistics and rounds to bf16 at its own points, so its loss parts may
+# move from 'chain's as the 'space' phase's band convs move them
+LAYOUT_LOSS_RTOL = 1e-3
+# the update's largest difference from the 'chain' step, as a fraction of
+# the 'chain' step's largest update: DDP_UPDATE_GAP_MAX's reasoning (a
+# layout that lost a gradient term moves RAdam's first, unadapted update by
+# about 1, and two runs of one step differ by ~5e-3)
+LAYOUT_UPDATE_GAP_MAX = 0.1
+LAYOUTS = {"chain": ("chain", False), "buffer": ("buffer", False),
+           "fused": ("fused", False), "chain_remat": ("chain", True),
+           "fused_remat": ("fused", True)}
+# a JAX train state taken up on the card: f32 at 64^2, batch 4, RAdam at
+# count 7 (its adaptive branch), moments drawn to lead the update as in
+# tests/torch_port_util.py's fill_opt_state; the card's step against the
+# CPU's within DDP_UPDATE_GAP_MAX (a count off by one flips RAdam's branch
+# and moves the update by about 1) and the loss parts within the CPU golden
+# tests' rtol 1e-4
+RESUME_SIZE, RESUME_BATCH, RESUME_COUNT, RESUME_LR = 64, 4, 7, 0.1
+# larger batches at 224^2: does a layout that keeps less let the step hold
+# more slices on the card? (layout, batch); one step each, its peak memory
+HEADROOM = (("chain", 128), ("chain_remat", 256), ("fused", 256))
+
+
+def _bn_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var",
+                           "num_batches_tracked"))}
+
+
+def _params_cpu(model) -> dict:
+    return {k: p.detach().float().cpu().clone()
+            for k, p in model.named_parameters()}
+
+
+def _layout_step(device, start, batch, mode: str, remat: bool, timed: bool):
+    """One train step of phase 7's configuration from `start` with every
+    dense block in `mode` (rematerialised with `remat`), its launches,
+    loss parts, parameters and BatchNorm state; with `timed`, 2 warm-up
+    and 5 timed steps more and the peak memory of those."""
+    import torch
+
+    from saunet_tpu_torch.data import make_augment_fn
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.train import create_train_state, make_train_step
+    from saunet_tpu_torch.train import radam
+
+    model = build_unet(dtype="bfloat16", encoder_concat=mode, remat=remat)
+    model.load_state_dict(start)
+    tx = radam(1e-4)
+    state = create_train_state(model, tx, device)
+    step = make_train_step(model, tx, augment_fn=make_augment_fn())
+    dgen = torch.Generator(device=device).manual_seed(8)
+    _zero_counts()
+    state, metrics = step(state, batch, dgen)
+    torch.cuda.synchronize()
+    out = {"launches": _counts(),
+           "parts": {k: float(metrics[k])
+                     for k in ("loss", "ce", "dice", "edge")},
+           "params": _params_cpu(model), "bn": _bn_state(model)}
+    if timed:
+        for _ in range(2):
+            state, metrics = step(state, batch, dgen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, dgen)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = statistics.median(times)
+        out["steps_ms"] = times
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _headroom(device, start) -> dict:
+    """One warm-up and one timed train step of each HEADROOM layout and
+    batch from `start`: ms and peak GiB, or "out of memory"."""
+    import torch
+
+    from saunet_tpu_torch.data import make_augment_fn
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.train import create_train_state, make_train_step
+    from saunet_tpu_torch.train import radam
+
+    out = {}
+    for name, n in HEADROOM:
+        mode, remat = LAYOUTS[name]
+        model = build_unet(dtype="bfloat16", encoder_concat=mode, remat=remat)
+        model.load_state_dict(start)
+        tx = radam(1e-4)
+        state = create_train_state(model, tx, device)
+        step = make_train_step(model, tx, augment_fn=make_augment_fn())
+        img, lab = synthetic_labelled(n, SIZE, SIZE,
+                                      torch.Generator().manual_seed(12),
+                                      device)
+        dgen = torch.Generator(device=device).manual_seed(8)
+        try:
+            state, _ = step(state, {"image": img, "label": lab}, dgen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            state, metrics = step(state, {"image": img, "label": lab}, dgen)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            out[f"{name}_b{n}"] = {"step_ms": ms, "peak_gib": peak}
+            log(f"headroom {name} at b{n}, {SIZE}^2 bf16: {ms:.3f} ms a "
+                f"step, peak {peak:.3f} GiB")
+        except torch.cuda.OutOfMemoryError:
+            out[f"{name}_b{n}"] = "out of memory"
+            log(f"headroom {name} at b{n}, {SIZE}^2 bf16: out of memory")
+        del model, state, step, img, lab
+        torch.cuda.empty_cache()
+    return out
+
+
+def _jax_layout(tensors: dict) -> dict:
+    """A port state_dict (or any tensors keyed like its parameters) as the
+    JAX package's variable tree, numpy leaves: the inverse of
+    models/jax_weights.py's map (kernels to HWIO, ConvTranspose kernels
+    transposed and flipped, BatchNorm `weight` to `scale`, the running
+    statistics under `batch_stats`)."""
+    import numpy as np
+
+    tree = {"params": {}, "batch_stats": {}}
+    stats = {"running_mean": "mean", "running_var": "var"}
+    for key, v in tensors.items():
+        *path, field = key.split(".")
+        if field == "num_batches_tracked":
+            continue
+        v = v.detach().float().cpu().numpy()
+        if field in stats:
+            where, field = "batch_stats", stats[field]
+        elif field == "weight" and v.ndim == 4:
+            where, field = "params", "kernel"
+            v = (v.transpose(2, 3, 0, 1)[::-1, ::-1]
+                 if path[-1].startswith("ConvTranspose")
+                 else v.transpose(2, 3, 1, 0))
+        elif field == "weight":
+            where, field = "params", "scale"
+        else:
+            where = "params"
+        node = tree[where]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[field] = np.ascontiguousarray(v)
+    return tree
+
+
+def _resume_on_card(device) -> dict:
+    """A JAX-layout train state, built as `utils.msgpack.load` returns a
+    checkpoint (the card has no flax), restored onto the card and onto the
+    CPU; one f32 step of each on the same batch."""
+    import numpy as np
+    import torch
+
+    from saunet_tpu_torch.data import edge_ground_truth, normalize_for_eval
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.models.init import init_random_
+    from saunet_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+        radam,
+        restore_jax_train_state,
+    )
+
+    gen = torch.Generator().manual_seed(11)
+    model = init_random_(build_unet(dtype="float32"), gen)
+    rng = np.random.default_rng(11)
+    named = dict(model.named_parameters())
+    mu = {k: torch.from_numpy(0.3 * rng.standard_normal(
+        tuple(p.shape), np.float32)) for k, p in named.items()}
+    nu = {k: torch.from_numpy(0.1 * (0.5 + rng.random(
+        tuple(p.shape), np.float32))) for k, p in named.items()}
+    count = np.array(RESUME_COUNT, np.int32)
+    raw = {**_jax_layout(model.state_dict()), "step": count,
+           "opt_state": {"0": {"count": count,
+                               "mu": _jax_layout(mu)["params"],
+                               "nu": _jax_layout(nu)["params"]},
+                         "1": {"count": count}}}
+    img, lab = synthetic_labelled(RESUME_BATCH, RESUME_SIZE, RESUME_SIZE,
+                                  gen, "cpu")
+    batch = {"image": normalize_for_eval(img), "label": lab,
+             "edge": edge_ground_truth(lab, 4)}
+    out = {}
+    for where in (device, torch.device("cpu")):
+        m = build_unet(dtype="float32")
+        tx = radam(RESUME_LR)
+        state = create_train_state(m, tx, where)
+        restore_jax_train_state(raw, state)
+        require(state.step == RESUME_COUNT
+                and state.optimizer.state["count"] == RESUME_COUNT,
+                f"resumed step {state.step} on {where}")
+        moments = [state.optimizer.state[p][k] for p in m.parameters()
+                   for k in ("exp_avg", "exp_avg_sq")]
+        require(all(t.device.type == where.type
+                    and t.dtype == torch.float32 for t in moments),
+                f"resumed moments are not f32 on {where}")
+        require(all(torch.equal(state.optimizer.state[p]["exp_avg"].cpu(),
+                                mu[k]) for k, p in m.named_parameters()),
+                f"resumed first moments differ on {where}")
+        start = _params_cpu(m)
+        state, metrics = make_train_step(m, tx)(state, batch)
+        out[where.type] = {
+            "parts": {k: float(metrics[k])
+                      for k in ("loss", "ce", "dice", "edge")},
+            "params": _params_cpu(m), "start": start}
+    card, cpu = out[device.type], out["cpu"]
+    gap = _update_gap(card["params"], cpu["params"], cpu["start"])
+    rel = {k: abs(card["parts"][k] - cpu["parts"][k])
+           / max(abs(cpu["parts"][k]), 1e-12) for k in cpu["parts"]}
+    log(f"JAX train state resumed at step {RESUME_COUNT} on the card and the "
+        f"CPU (f32, {RESUME_BATCH} x {RESUME_SIZE}^2, moments on "
+        f"{device.type}): loss parts card {card['parts']}, relative "
+        f"difference {rel} (limit 1e-4); update difference {gap:.4e} of "
+        f"the largest update (limit {DDP_UPDATE_GAP_MAX})")
+    require(all(v <= 1e-4 for v in rel.values()),
+            "the resumed step's loss parts differ between the card and the "
+            "CPU")
+    require(gap <= DDP_UPDATE_GAP_MAX,
+            "the resumed step's update differs between the card and the CPU")
+    return {"loss_parts": card["parts"], "loss_rel_diff_cpu": rel,
+            "update_rel_diff_cpu": gap}
+
+
+def phase_layouts(device, tmp, root) -> tuple:
+    """The dense blocks' train layouts and remat at phase 7's step, a JAX
+    train state resumed on the card, and `cli.train --encoder_concat
+    fused` for one epoch on phase 8's volumes, then `--resume` for the
+    next. Returns (launches, result)."""
+    import shutil
+
+    import torch
+
+    from saunet_tpu_torch.cli.train import main as train_main
+    from saunet_tpu_torch.cli.train import parse_args
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.models.init import init_random_
+
+    t_phase = time.perf_counter()
+    # phase 7's weights and batch: the same seed, drawn in the same order
+    gen = torch.Generator().manual_seed(7)
+    model = init_random_(build_unet(dtype="bfloat16"), gen)
+    start, start_params = model.state_dict(), _params_cpu(model)
+    del model
+    img, lab = synthetic_labelled(BATCH, SIZE, SIZE, gen, device)
+    batch = {"image": img, "label": lab}
+    launches, results = {}, {}
+    chain = _layout_step(device, start, batch, "chain", False, timed=True)
+    again = _layout_step(device, start, batch, "chain", False, timed=False)
+    band_update = _update_gap(again["params"], chain["params"], start_params)
+    band_loss = max(abs(again["parts"][k] - chain["parts"][k])
+                    / abs(chain["parts"][k]) for k in chain["parts"])
+    log(f"layouts: 'chain' against itself: loss parts {band_loss:.3e} "
+        f"(relative), update {band_update:.4e} of the largest update")
+    plain_bn = {}
+    for name, (mode, remat) in LAYOUTS.items():
+        r = chain if name == "chain" else _layout_step(
+            device, start, batch, mode, remat, timed=True)
+        want = {"canny": 1, "dense_block": 0, "warp": 1, "gather": 0,
+                "shape_stream": 0}
+        require(r["launches"] == want,
+                f"layout {name}: launches {r['launches']}")
+        rel = {k: abs(r["parts"][k] - chain["parts"][k])
+               / abs(chain["parts"][k]) for k in r["parts"]}
+        gap = _update_gap(r["params"], chain["params"], start_params)
+        log(f"layout {name}: loss parts {r['parts']}, relative to 'chain' "
+            f"{rel} (limit {LAYOUT_LOSS_RTOL}); update max|d| {gap:.4e} of "
+            f"'chain''s largest update (limit {LAYOUT_UPDATE_GAP_MAX}; "
+            f"'chain' against itself {band_update:.4e}); K5 launched "
+            f"{r['launches']['warp']}; {r['step_ms']:.3f} ms median of 5 "
+            f"after 2 warm-up ({BATCH / r['step_ms'] * 1e3:.2f} slices/s), "
+            f"steps {r['steps_ms']}; peak {r['peak_gib']:.3f} GiB")
+        require(all(v == v and abs(v) != float("inf")
+                    for v in r["parts"].values()),
+                f"layout {name}: a loss part is not finite")
+        require(all(v <= LAYOUT_LOSS_RTOL for v in rel.values()),
+                f"layout {name}: loss parts differ from 'chain'")
+        require(gap <= LAYOUT_UPDATE_GAP_MAX,
+                f"layout {name}: update differs from 'chain'")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        results[name] = {"loss_parts": r["parts"], "loss_rel_diff": rel,
+                         "update_rel_diff": gap, "step_ms": r["step_ms"],
+                         "steps_ms": r["steps_ms"],
+                         "slices_per_s": BATCH / r["step_ms"] * 1e3,
+                         "peak_gib": r["peak_gib"]}
+        if not remat:
+            plain_bn[name] = r["bn"]
+        else:
+            # one EMA step, as without remat: the recompute in the
+            # backward leaves the running statistics alone
+            plain = plain_bn[mode]
+            stats_gap = max(float((r["bn"][k].float() - v.float()).abs()
+                                  .max()) for k, v in plain.items())
+            tracked = {int(v) for k, v in r["bn"].items()
+                       if k.endswith("num_batches_tracked")}
+            log(f"layout {name}: running statistics against '{mode}' "
+                f"without remat: max|d| {stats_gap:.3e}; "
+                f"num_batches_tracked {sorted(tracked)}")
+            require(tracked == {1}, f"layout {name}: BatchNorm updated "
+                    f"{sorted(tracked)} times in one step")
+            require(all(torch.allclose(r["bn"][k].float(), v.float(),
+                                       rtol=1e-5, atol=1e-6)
+                        for k, v in plain.items()),
+                    f"layout {name}: running statistics differ from "
+                    f"'{mode}' without remat")
+            results[name]["running_stats_max_diff"] = stats_gap
+        del r
+    results["chain_band"] = {"loss_rel_diff": band_loss,
+                             "update_rel_diff": band_update}
+    del chain, again
+    torch.cuda.empty_cache()
+    results["headroom"] = _headroom(device, start)
+
+    results["resume"] = _resume_on_card(device)
+    torch.cuda.empty_cache()
+
+    # the train CLI in the fused layout: one epoch, then --resume the next
+    z, batch_size = 6, 8
+    steps, val_batches = (5 * z) // batch_size, -(-z // batch_size)
+
+    def argv(epochs):
+        return ["--data-root", root, "--ckpt", os.path.join(tmp, "layouts"),
+                "--num_epoch", str(epochs), "--batch_size_per_device",
+                str(batch_size), "--crop_size", str(SIZE), "--device",
+                str(device), "--id", "fused", "--encoder_concat", "fused"]
+
+    cli = {}
+    for epochs in (1, 2):
+        args = argv(epochs)
+        run = parse_args(args).ckpt
+        if epochs == 2:
+            os.makedirs(run)
+            shutil.copy(os.path.join(parse_args(argv(1)).ckpt,
+                                     "state_epoch_1.pt"), run)
+            args.append("--resume")
+        buf = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        out = buf.getvalue()
+        log(f"train CLI --encoder_concat fused, epoch {epochs}"
+            f"{' (--resume)' if epochs == 2 else ''}: {seconds:.3f} s, "
+            f"launches {counts}")
+        require(counts == {"canny": steps + val_batches,
+                           "dense_block": 4 * val_batches, "warp": steps,
+                           "gather": 0, "shape_stream": 0},
+                f"fused train CLI launches {counts}")
+        require(out.count("class [") == 3, "per-class IoU not printed")
+        saved = torch.load(os.path.join(run, f"state_epoch_{epochs}.pt"),
+                           map_location="cpu", weights_only=True)
+        require(saved["step"] == epochs * steps,
+                f"epoch {epochs} saved at step {saved['step']}")
+        if epochs == 2:
+            require("continuing at epoch 2" in out
+                    and "Epoch: [1/2]" not in out,
+                    "--resume did not go on at epoch 2")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        cli[f"epoch_{epochs}_s"] = seconds
+    results["cli"] = cli
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"layouts phase: {results['seconds']:.1f} s")
+    return launches, results
+
+
 SALIENCY_METHODS = {"vanilla": 1, "guided": 1, "smoothgrad": 5,
                     "smoothgrad-guided": 5}  # method -> Canny launches
 SMOOTHGRAD_N, SMOOTHGRAD_BATCH = 50, 10
@@ -1979,6 +2375,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, train_cli, root, ckpt = phase_train_cli(device, tmp)
         torch.cuda.empty_cache()
+        layout_launches, layouts = phase_layouts(device, tmp, root)
+        torch.cuda.empty_cache()
         saliency_launches, saliency = phase_saliency(device, root, ckpt,
                                                      tmp)
         torch.cuda.empty_cache()
@@ -1989,6 +2387,7 @@ def main() -> int:
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
                "train_step": train_launches, "train_cli": cli_launches,
+               "layouts": layout_launches,
                "saliency": saliency_launches, "ddp": ddp_launches,
                "space": space_launches}
 
@@ -2048,7 +2447,7 @@ def main() -> int:
                            "step_slices_per_s", "route_argmax_agreement",
                            "inputs_ms")},
         "serving_ms_per_slice": ms_per_slice, "train": train,
-        "train_cli": train_cli, "saliency": saliency,
+        "train_cli": train_cli, "layouts": layouts, "saliency": saliency,
         "data_parallel": ddp, "space": space}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,12 +4,17 @@
 The epoch loop: train steps with the augmentation on the device (the warp
 kernel), per-epoch evaluation with the last batch padded and masked,
 per-class IoU, the cosine LR schedule, `BestIoUPolicy` checkpoints
-(`state_epoch_<N>.pt`), `best.json` and `--resume`. `--weights_unet`
-warm-starts the weights from a port checkpoint or state_dict (`.pt`) or a
-JAX package checkpoint (`.msgpack`). It runs on the card
-(`--device cuda`, the default; a missing card is an error) or, when asked,
-on the CPU. The port has one stream layout and one dense-block layout:
-`--stream_impl` and `--encoder_concat` are accepted and run the same math.
+(`state_epoch_<N>.pt`), `best.json` and `--resume`, which takes up the
+newest epoch of the run directory, whether the port wrote it
+(`state_epoch_<N>.pt`) or the JAX package (`state_epoch_<N>.msgpack`:
+weights, batch statistics, optax moments and step), and goes on at epoch
+N + 1. `--weights_unet` warm-starts the weights alone from a port
+checkpoint or state_dict (`.pt`) or a JAX package checkpoint (`.msgpack`).
+`--encoder_concat` picks the dense blocks' train layout (models/densenet.py:
+'chain', 'buffer' or 'fused'; 'auto' is 'chain', as in the JAX CLI). It
+runs on the card (`--device cuda`, the default; a missing card is an
+error) or, when asked, on the CPU. The port has one stream layout:
+`--stream_impl` is accepted and runs the same math.
 
 Data parallel: under `torchrun --nproc_per_node N -m
 saunet_tpu_torch.cli.train ... [--space S]` each rank takes a card
@@ -112,7 +117,7 @@ def parse_args(argv=None):
                    help="accepted; the port has one shape-stream layout")
     p.add_argument("--encoder_concat", default="auto",
                    choices=["auto", "chain", "buffer", "fused"],
-                   help="accepted; the port concatenates layer by layer")
+                   help="dense-block train layout; auto: chain")
     p.add_argument("--no_deform", action="store_true",
                    help="disable elastic deformation")
     p.add_argument("--slice_cache", default="",
@@ -142,17 +147,20 @@ def parse_args(argv=None):
 
 
 def _latest_checkpoint(ckpt_dir):
-    """(path, epoch) of the newest state_epoch_N.pt, or None."""
+    """(path, epoch) of the newest state_epoch_N.pt or
+    state_epoch_N.msgpack (the port's file where both hold epoch N), or
+    None."""
     if not os.path.isdir(ckpt_dir):
         return None
-    best = None
+    found = []
     for f in os.listdir(ckpt_dir):
-        m = re.match(r"state_epoch_(\d+)\.pt$", f)
+        m = re.match(r"state_epoch_(\d+)\.(pt|msgpack)$", f)
         if m:
-            e = int(m.group(1))
-            if best is None or e > best[1]:
-                best = (os.path.join(ckpt_dir, f), e)
-    return best
+            found.append((int(m.group(1)), m.group(2) == "pt", f))
+    if not found:
+        return None
+    epoch, _, f = max(found)
+    return os.path.join(ckpt_dir, f), epoch
 
 
 def batches(n, batch_size, rng=None, drop_last=True):
@@ -258,8 +266,10 @@ def main(argv=None):
     steps_per_epoch = max(len(train_imgs) // args.batch_size, 1)
 
     # --- model / optimizer -------------------------------------------
+    encoder_concat = ("chain" if args.encoder_concat == "auto"
+                      else args.encoder_concat)
     model = build_unet(num_class=args.num_class, arch=args.unet_arch,
-                       dtype=args.dtype)
+                       dtype=args.dtype, encoder_concat=encoder_concat)
     schedule = cosine_epoch_schedule(args.lr_encoder, args.num_epoch,
                                      steps_per_epoch)
     tx = create_optimizer(args.optimizer, schedule, beta1=args.beta1,

@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 
 from .saunet import SAUNet
+from .segmentation_module import SegmentationModule
+from .torch_port import port_torch_saunet_state_dict
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -16,4 +18,5 @@ def build_unet(num_class: int = 4, arch: str = "saunet",
     return SAUNet(num_classes=num_class, dtype=_DTYPES[dtype], **kwargs)
 
 
-__all__ = ["SAUNet", "build_unet"]
+__all__ = ["SAUNet", "SegmentationModule", "build_unet",
+           "port_torch_saunet_state_dict"]

@@ -12,13 +12,17 @@ flax path `a/b/c/<leaf>` is port key `a.b.c.<field>`.
   BN batch_stats mean / var         -> running_mean / running_var (plus
                                        num_batches_tracked = 0)
 
+`port_leaf` is the map of one `params` leaf; `port_params` maps any tree
+keyed like `params`, such as an optax state's moments
+(train/optim.py::load_jax_opt_state).
+
 Input leaves are numpy arrays (or anything `np.asarray` takes). A JAX
 package checkpoint (`.msgpack`) gives such a tree through
 `train.checkpoint.load_jax_variables`.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +36,34 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
         else:
             out[prefix + (k,)] = np.asarray(v, np.float32)
     return out
+
+
+def port_leaf(path: tuple, v: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """The port key and the tensor of the `params`-tree leaf at flax
+    `path` (a tuple of names): HWIO kernels to OIHW, ConvTranspose kernels
+    flipped and transposed, BatchNorm `scale` to `weight`. Any tree keyed
+    like `params` goes through it: the weights, and the optimizer's
+    moments of them. Raises on a leaf the map does not know."""
+    mod, leaf = ".".join(path[:-1]), path[-1]
+    if leaf == "kernel":
+        if v.ndim != 4:
+            raise ValueError(f"{'/'.join(path)}: expected a 4-D kernel, "
+                             f"got {v.shape}")
+        if path[-2].startswith("ConvTranspose"):
+            w = v[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            w = v.transpose(3, 2, 0, 1)
+        return f"{mod}.weight", torch.from_numpy(np.ascontiguousarray(w))
+    if leaf in ("scale", "bias"):
+        field = "weight" if leaf == "scale" else "bias"
+        return f"{mod}.{field}", torch.from_numpy(v.copy())
+    raise KeyError(f"no port counterpart for params leaf {'/'.join(path)}")
+
+
+def port_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree keyed like `params` (flax names, numpy leaves) -> {port
+    parameter name: f32 tensor}, through `port_leaf`."""
+    return dict(port_leaf(path, v) for path, v in _flatten(tree).items())
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -49,24 +81,7 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                        f"{sorted(bn_modules - stat_modules)[:4]}, stats "
                        f"without params {sorted(stat_modules - bn_modules)[:4]}")
 
-    for path, v in params.items():
-        mod, leaf = ".".join(path[:-1]), path[-1]
-        if leaf == "kernel":
-            if v.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 4-D kernel, "
-                                 f"got {v.shape}")
-            if path[-2].startswith("ConvTranspose"):
-                w = v[::-1, ::-1].transpose(2, 3, 0, 1)
-            else:
-                w = v.transpose(3, 2, 0, 1)
-            sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
-        elif leaf == "scale":
-            sd[f"{mod}.weight"] = torch.from_numpy(v.copy())
-        elif leaf == "bias":
-            sd[f"{mod}.bias"] = torch.from_numpy(v.copy())
-        else:
-            raise KeyError(f"no port counterpart for params leaf "
-                           f"{'/'.join(path)}")
+    sd.update(port_leaf(path, v) for path, v in params.items())
     names = {"mean": "running_mean", "var": "running_var"}
     for path, v in stats.items():
         mod, leaf = ".".join(path[:-1]), path[-1]

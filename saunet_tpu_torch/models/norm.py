@@ -20,7 +20,14 @@ statistics over every rank of `group`. One differentiable all-reduce of the
 stacked f32 (sum x, sum x^2, n) a layer gives the global mean and
 var = max(0, E[x^2] - E[x]^2), flax's fast variance under `pmean`; the
 running statistics update with them as above. Without a group nothing of
-this runs.
+this runs. `batch_stats` is that computation on its own, with or without a
+group: the fused dense block (ops/dense_block_train.py) takes its
+statistics from it and folds them in with `update_running`.
+
+A rematerialised block (models/densenet.py, `remat`) runs its forward
+again during the backward; inside `frozen_running_stats` the running
+statistics stay as the first forward left them, so they move once a step,
+as under flax's `nn.remat`.
 """
 from __future__ import annotations
 
@@ -34,10 +41,27 @@ from ..parallel.collectives import all_reduce_sum
 from ..utils.config import BN_EPS, BN_MOMENTUM
 
 
+def batch_stats(x: torch.Tensor, group=None):
+    """flax's batch statistics of NCHW `x`: the f32 per-channel mean and
+    the fast variance max(0, E[x^2] - E[x]^2) over (N, H, W) and, with a
+    process group, over its ranks (one differentiable all-reduce of the
+    stacked (sum x, sum x^2, n))."""
+    xf = x.float()
+    c = xf.shape[1]
+    dims = (0, 2, 3)
+    n = xf.new_full((c,), float(xf.numel() // c))
+    sums = all_reduce_sum(
+        torch.stack([xf.sum(dims), (xf * xf).sum(dims), n]), group)
+    mean = sums[0] / sums[2]
+    return mean, torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     #: the process group whose ranks share the batch statistics (set by
     #: `sync_batch_norm`); None: this process's batch alone
     group = None
+    #: True inside `frozen_running_stats`: the running statistics stay
+    frozen = False
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -58,25 +82,23 @@ class BatchNorm2d(nn.BatchNorm2d):
                          True, 1.0, self.eps)
         n = xf.numel() // xf.shape[1]
         with torch.no_grad():
-            self._update_running(mean, var_unbiased * ((n - 1) / n))
+            self.update_running(mean, var_unbiased * ((n - 1) / n))
         return y.to(x.dtype)
 
     def _forward_synced(self, xf: torch.Tensor) -> torch.Tensor:
-        c = xf.shape[1]
-        dims = (0, 2, 3)
-        n = xf.new_full((c,), float(xf.numel() // c))
-        sums = all_reduce_sum(
-            torch.stack([xf.sum(dims), (xf * xf).sum(dims), n]), self.group)
-        mean = sums[0] / sums[2]
-        var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
+        mean, var = batch_stats(xf, self.group)
         scale = self.weight * torch.rsqrt(var + self.eps)
         y = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
              + self.bias[None, :, None, None])
         with torch.no_grad():
-            self._update_running(mean, var)
+            self.update_running(mean, var)
         return y
 
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold a batch's mean and biased variance into the running
+        statistics (flax's EMA), unless they are frozen."""
+        if self.frozen:
+            return
         m = self.momentum
         if m is None:  # cumulative average, as in torch's BatchNorm2d
             m = 1.0 / float(self.num_batches_tracked + 1)
@@ -102,3 +124,17 @@ def sync_batch_norm(model: nn.Module, group):
     finally:
         for m in bns:
             m.group = None
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block no `BatchNorm2d` of `module` updates its running
+    statistics; they normalise as before."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield module
+    finally:
+        for m in bns:
+            m.frozen = False

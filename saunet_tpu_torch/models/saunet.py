@@ -64,7 +64,9 @@ def canny_rows(gray: torch.Tensor, space, edges) -> torch.Tensor:
 class SAUNet(nn.Module):
     """`edge_kernel`: "auto" runs Canny through its kernel wrapper (the
     CUDA kernel on a GPU, the plain version on the CPU); "plain" always
-    runs the plain version."""
+    runs the plain version. `remat` and `encoder_concat` are the encoder's
+    (models/densenet.py: rematerialised dense blocks; their train layout,
+    'chain', 'buffer' or 'fused')."""
 
     space = None
 
@@ -72,7 +74,8 @@ class SAUNet(nn.Module):
                  num_filters: int = NUM_FILTERS,
                  dtype: torch.dtype = torch.float32,
                  canny_low: float = 10.0, canny_high: float = 100.0,
-                 edge_kernel: str = "auto"):
+                 edge_kernel: str = "auto", remat: bool = False,
+                 encoder_concat: str = "chain"):
         super().__init__()
         if edge_kernel not in ("auto", "plain"):
             raise ValueError(f"edge_kernel must be 'auto' or 'plain', got "
@@ -84,7 +87,8 @@ class SAUNet(nn.Module):
         self.edge_kernel = edge_kernel
         nf = num_filters
 
-        self.encoder = DenseNetEncoder()
+        self.encoder = DenseNetEncoder(remat=remat,
+                                       concat_mode=encoder_concat)
         # shape stream; f2..f5 carry 128, 256, 512, 1024 channels
         self.d0 = Conv2d(128, 64)
         self.c3 = Conv2d(256, 1)

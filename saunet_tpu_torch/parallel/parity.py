@@ -31,7 +31,7 @@ from ..models.blocks import (
     partition_space,
     pool_2x2,
 )
-from ..models.densenet import DenseBlock
+from ..models.densenet import DenseBlock, rematerialised
 from ..models.init import init_random_
 from ..models.norm import sync_batch_norm
 from ..models.saunet import canny_rows
@@ -52,8 +52,10 @@ from .shard_map_step import make_shard_map_train_step
 Weights = Union[str, int]
 
 
-def build_model(weights: Weights, dtype: str = "float32") -> nn.Module:
-    model = build_unet(dtype=dtype)
+def build_model(weights: Weights, dtype: str = "float32",
+                **kwargs) -> nn.Module:
+    """A SAUNet (`build_unet(dtype=dtype, **kwargs)`) holding `weights`."""
+    model = build_unet(dtype=dtype, **kwargs)
     if isinstance(weights, str):
         model.load_state_dict(torch.load(weights, map_location="cpu",
                                          weights_only=True))
@@ -200,12 +202,14 @@ def param_digest(model: nn.Module) -> torch.Tensor:
 def _first_step(mesh: DataMesh, weights: Weights,
                 batch: Dict[str, np.ndarray], lr: float, dtype: str,
                 augment_seed: Optional[int], fix_bn: bool = False,
-                shard_map: bool = False, hook=None, space: int = 1):
-    """Build the model, state and step, and take one step on this rank's
-    rows: (result, state, step, rows, gen). `hook`: a DDP comm hook for
-    the global-batch step's gradient buckets."""
+                shard_map: bool = False, hook=None, space: int = 1,
+                model_kwargs: Optional[dict] = None):
+    """Build the model (`build_model(weights, dtype, **model_kwargs)`),
+    state and step, and take one step on this rank's rows: (result, state,
+    step, rows, gen). `hook`: a DDP comm hook for the global-batch step's
+    gradient buckets."""
     mesh = mesh.with_space(space)
-    model = build_model(weights, dtype)
+    model = build_model(weights, dtype, **(model_kwargs or {}))
     tx = radam(lr)
     state = create_train_state(model, tx, mesh=mesh)
     augment = make_augment_fn() if augment_seed is not None else None
@@ -233,13 +237,16 @@ def _first_step(mesh: DataMesh, weights: Weights,
 def train_case(mesh: DataMesh, weights: Weights, batch: Dict[str, np.ndarray],
                lr: float = 1e-3, dtype: str = "float32", fix_bn: bool = False,
                augment_seed: Optional[int] = None,
-               shard_map: bool = False, space: int = 1) -> dict:
+               shard_map: bool = False, space: int = 1,
+               model_kwargs: Optional[dict] = None) -> dict:
     """One step of the global-batch step (or, `shard_map`, of the
-    per-rank-loss step) from `weights` on this rank's rows of `batch`:
-    its metrics, launches, BatchNorm running statistics, a digest of the
-    parameters and, on rank 0, the parameters."""
+    per-rank-loss step) from `weights` on this rank's rows of `batch`
+    (`model_kwargs`: the SAUNet's layout options, e.g. encoder_concat and
+    remat): its metrics, launches, BatchNorm running statistics, a digest
+    of the parameters and, on rank 0, the parameters."""
     return _first_step(mesh, weights, batch, lr, dtype, augment_seed,
-                       fix_bn=fix_bn, shard_map=shard_map, space=space)[0]
+                       fix_bn=fix_bn, shard_map=shard_map, space=space,
+                       model_kwargs=model_kwargs)[0]
 
 
 def iou_counts(preds: np.ndarray, labels: np.ndarray, valid: np.ndarray,
@@ -375,20 +382,21 @@ def space_ops_case(mesh: DataMesh, inputs: Dict[str, np.ndarray],
 
 
 def dense_block_case(mesh: DataMesh, x: np.ndarray, layers: int,
-                     seed: int, space: int) -> dict:
-    """A train-mode DenseBlock(x.shape[1], layers) from `seed` on this
-    rank's rows of `x` (global NCHW) on the grid, BatchNorm synced over
-    it, loss = sum(out^2) / out.numel() of the whole output: this rank's
-    rows of the output, the parameter gradients averaged over the ranks
-    (as DDP averages them: the true gradient) and the running
-    statistics."""
+                     seed: int, space: int, concat_mode: str = "chain",
+                     remat: bool = False) -> dict:
+    """A train-mode DenseBlock(x.shape[1], layers, concat_mode) from
+    `seed` (rematerialised with `remat`) on this rank's rows of `x` (global
+    NCHW) on the grid, BatchNorm synced over it, loss = sum(out^2) /
+    out.numel() of the whole output: this rank's rows of the output, the
+    parameter gradients averaged over the ranks (as DDP averages them: the
+    true gradient) and the running statistics."""
     mesh = mesh.with_space(space)
-    block = init_random_(DenseBlock(x.shape[1], layers),
+    block = init_random_(DenseBlock(x.shape[1], layers, concat_mode),
                          torch.Generator().manual_seed(seed)).train()
     xr = _rows_of(x, mesh, 2)
     with sync_batch_norm(block, mesh.group), \
             partition_space(block, mesh, x.shape[2]):
-        y = block(xr)
+        y = rematerialised(block, xr) if remat else block(xr)
     loss = all_reduce_sum(torch.sum(y * y), mesh.group) / y.new_tensor(
         float(np.prod(x.shape[:1]) * y.shape[1] * np.prod(x.shape[2:])))
     loss.backward()

@@ -2,6 +2,7 @@ from .checkpoint import (
     BestIoUPolicy,
     load_jax_variables,
     restore_checkpoint,
+    restore_jax_train_state,
     restore_params_only,
     save_checkpoint,
 )
@@ -22,4 +23,5 @@ __all__ = ["BestIoUPolicy", "DEFAULT_CLASS_WEIGHTS", "InferState",
            "create_train_state", "dual_loss", "intersection_and_union",
            "load_jax_variables", "make_eval_step", "make_infer_step",
            "make_train_step", "pixel_acc", "radam", "restore_checkpoint",
-           "restore_params_only", "save_checkpoint"]
+           "restore_jax_train_state", "restore_params_only",
+           "save_checkpoint"]

@@ -7,8 +7,11 @@ model weights alone from such a file, from a bare `torch.save`d model
 state_dict, or from a JAX package checkpoint (`state_<tag>.msgpack`, read
 by `load_jax_variables` without flax): the reference's `--weights_unet`
 warm start, and what `test_and_pack --checkpoint` and `saliency
---checkpoint` read. A full resume from a JAX checkpoint's optimizer state
-is not ported. `BestIoUPolicy` is the reference's rule for when to save.
+--checkpoint` read. `restore_checkpoint` takes up either kind of file: a
+JAX checkpoint's params, batch_stats, optax state and step become the
+port's weights, optimizer moments and step (`optim.load_jax_opt_state`),
+so a run started on the TPU goes on exactly. `BestIoUPolicy` is the
+reference's rule for when to save.
 Under a process group rank 0 alone writes, and every rank reads.
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 from ..models.jax_weights import from_jax_variables
 from ..parallel.mesh import barrier
 from ..utils import msgpack
+from .optim import load_jax_opt_state
 from .state import TrainState
 
 
@@ -54,34 +58,60 @@ def _is_jax_checkpoint(path: str) -> bool:
     return path.endswith(".msgpack")
 
 
+def _numpy_tree(tree, copy: bool = True):
+    """A msgpack tree with numpy leaves (bfloat16 leaves widened to
+    float32), copied out of the file's buffer unless `copy` is False."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v, copy) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return np.array(tree) if copy else np.asarray(tree)
+
+
+def _load_jax_train_state(path: str) -> dict:
+    raw = msgpack.load(path)
+    if not isinstance(raw, dict) or not {"params", "batch_stats"} <= set(raw):
+        raise KeyError(f"{path}: not a JAX train-state checkpoint (no "
+                       f"params and batch_stats)")
+    return raw
+
+
 def load_jax_variables(path: str) -> Dict[str, dict]:
     """{'params', 'batch_stats'} of a JAX package checkpoint (flax's
     msgpack of its TrainState), as nested dicts of numpy arrays, copied out
     of the file's buffer (bfloat16 leaves widened to float32); the
     checkpoint's `opt_state` and `step` are skipped."""
-    raw = msgpack.load(path)
-    if not isinstance(raw, dict) or not {"params", "batch_stats"} <= set(raw):
-        raise KeyError(f"{path}: not a JAX train-state checkpoint (no "
-                       f"params and batch_stats)")
+    raw = _load_jax_train_state(path)
+    return {k: _numpy_tree(raw[k]) for k in ("params", "batch_stats")}
 
-    def copy(tree):
-        if isinstance(tree, dict):
-            return {k: copy(v) for k, v in tree.items()}
-        if isinstance(tree, torch.Tensor):
-            return tree.float().numpy()
-        return np.array(tree)
 
-    return {k: copy(raw[k]) for k in ("params", "batch_stats")}
+def restore_jax_train_state(raw: dict, state: TrainState) -> TrainState:
+    """Load a JAX package train state, as `utils.msgpack.load` reads it
+    from a checkpoint (params, batch_stats, opt_state, step), into
+    `state`: the weights, the optimizer's moments on their parameters'
+    device (`optim.load_jax_opt_state`: the optax state must be of
+    `state.optimizer`'s kind, its counts equal to the step) and the step.
+    Returns `state`."""
+    if not {"params", "batch_stats", "opt_state", "step"} <= set(raw):
+        raise KeyError(f"not a JAX train state: keys {sorted(raw)}")
+    # the layout map copies every leaf out of the file's buffer
+    weights = from_jax_variables({k: _numpy_tree(raw[k], copy=False)
+                                  for k in ("params", "batch_stats")})
+    step = int(np.asarray(raw["step"]))
+    load_jax_opt_state(state.optimizer, state.model,
+                       _numpy_tree(raw["opt_state"], copy=False), step)
+    state.model.load_state_dict(weights)
+    state.step = step
+    state._folded = None
+    return state
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Load the model, optimizer and step of `path` into `state`; returns
-    it. A JAX checkpoint raises: its optimizer state is optax's."""
+    """Load the model, optimizer and step of `path`, a port checkpoint
+    (`.pt`) or a JAX package checkpoint (`.msgpack`:
+    `restore_jax_train_state`), into `state`; returns it."""
     if _is_jax_checkpoint(path):
-        raise NotImplementedError(
-            f"{path}: resuming from a JAX checkpoint's optimizer state is "
-            f"not ported; warm-start its weights with restore_params_only "
-            f"(--weights_unet)")
+        return restore_jax_train_state(_load_jax_train_state(path), state)
     ckpt = _load(path)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])

@@ -14,15 +14,21 @@ RAdam is the JAX `scale_by_radam` (the reference's rule): the adaptive
 branch when `n_sma >= 5`, else bias-corrected momentum; eps outside the
 sqrt. `torch.optim.RAdam` differs in its threshold and its decay, so it is
 not used.
+
+`load_jax_opt_state` takes up a JAX run's optimizer: the optax state of
+the three optimizers `create_optimizer` builds, as flax's msgpack stores it
+(tuples as '0'/'1' dicts), becomes the port optimizer's moments and count.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..models.jax_weights import port_params
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -244,3 +250,89 @@ def create_optimizer(name: str, learning_rate: Schedule,
     raise ValueError(
         "Invalid optimizer. Please try again with optimizer sgd, adam, or "
         f"radam (got {name!r}).")
+
+
+def _lr_counts(tree) -> Optional[list]:
+    """The counts of an optax learning-rate state: `scale_by_schedule`'s
+    {'count'}, or [] for a float's empty state; None for anything else."""
+    if not isinstance(tree, Mapping) or set(tree) - {"count"}:
+        return None
+    return [tree["count"]] if tree else []
+
+
+def _read_optax_state(opt_state) -> tuple:
+    """(kind, {port moment name: params-keyed tree}, [optax counts]) of the
+    optax state of `create_optimizer`'s optimizers in flax's msgpack form:
+
+      radam, adam  {'0': {count, mu, nu}, '1': lr state}   kind 'moments'
+      sgd          {'0': decay state, '1': {'0': {trace}, '1': lr state}}
+                                                           kind 'trace'
+
+    (scale_by_radam's and scale_by_adam's states hold the same fields, so
+    the tree names the family, not the rule). The decay state is
+    `add_decayed_weights`' empty one, or {'inner_state': {}} under a mask.
+    Raises on a tree that fits none of them."""
+    if isinstance(opt_state, Mapping) and set(opt_state) == {"0", "1"}:
+        first, second = opt_state["0"], opt_state["1"]
+        lr = _lr_counts(second)
+        if (isinstance(first, Mapping)
+                and set(first) == {"count", "mu", "nu"} and lr is not None):
+            return ("moments", {"exp_avg": first["mu"],
+                                "exp_avg_sq": first["nu"]},
+                    [first["count"]] + lr)
+        if (isinstance(first, Mapping) and first in ({}, {"inner_state": {}})
+                and isinstance(second, Mapping) and set(second) == {"0", "1"}
+                and isinstance(second["0"], Mapping)
+                and set(second["0"]) == {"trace"}):
+            lr = _lr_counts(second["1"])
+            if lr is not None:
+                return "trace", {"trace": second["0"]["trace"]}, lr
+    shape = (sorted(opt_state) if isinstance(opt_state, Mapping)
+             else type(opt_state).__name__)
+    raise ValueError(f"the optax state {shape} fits none of radam, adam and "
+                     f"sgd as create_optimizer builds them")
+
+
+#: the optax state kind each port optimizer takes
+_KINDS = {RAdam: "moments", Adam: "moments", SGD: "trace"}
+
+
+def load_jax_opt_state(optimizer: torch.optim.Optimizer, model: nn.Module,
+                       opt_state: Mapping, step: int) -> None:
+    """Set `optimizer` (built on `model`'s parameters) to a JAX run's
+    optax state at `step`: each moment tree (keyed like `params`, numpy
+    leaves) goes through the weights' layout map into
+    `state[p]['exp_avg' | 'exp_avg_sq' | 'trace']`, f32 on the parameter's
+    device, and `step` becomes the update count.
+
+    Every optax `count` must equal `step`: RAdam's branch turns on that
+    count (`radam_step_size`). Raises, before it changes anything, on a
+    tree that fits no optimizer or not this one, on a count that differs,
+    and on a moment missing, unknown or of another shape."""
+    kind, moments, counts = _read_optax_state(opt_state)
+    want = _KINDS.get(type(optimizer))
+    if want != kind:
+        raise ValueError(f"a {kind!r} optax state does not fit "
+                         f"{type(optimizer).__name__}")
+    step = int(step)
+    counts = [int(np.asarray(c)) for c in counts]
+    if any(c != step for c in counts):
+        raise ValueError(f"optax counts {counts} differ from the step {step}")
+    params = dict(model.named_parameters())
+    state: Dict[torch.Tensor, dict] = {p: {} for p in params.values()}
+    for name, tree in moments.items():
+        ported = port_params(tree)
+        extra = sorted(ported.keys() - params.keys())
+        missing = sorted(params.keys() - ported.keys())
+        if extra or missing:
+            raise KeyError(f"{name}: moments without a parameter {extra[:4]}, "
+                           f"parameters without a moment {missing[:4]}")
+        for k, v in ported.items():
+            p = params[k]
+            if v.shape != p.shape:
+                raise ValueError(f"{name} of {k}: shape {tuple(v.shape)}, "
+                                 f"parameter {tuple(p.shape)}")
+            state[p][name] = v.to(device=p.device, dtype=torch.float32)
+    for p, moments_of_p in state.items():
+        optimizer.state[p] = moments_of_p
+    optimizer.state["count"] = step

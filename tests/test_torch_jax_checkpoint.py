@@ -7,7 +7,8 @@ save_checkpoint` (params, batch_stats, RAdam's opt_state, step) through
 
 The variables come from `jax.eval_shape` and `fill_variables`, never a flax
 `init` of the whole model; RAdam's state is `tx.init`'s tree of shapes
-filled with zeros, as `tx.init` fills it."""
+with zero moments and its counts at the checkpoint's step, as a run that
+saved at that step holds them (moments aside)."""
 import os
 
 import numpy as np
@@ -29,7 +30,10 @@ from saunet_tpu_torch.data import nifti
 from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from saunet_tpu_torch.train import (
+    create_optimizer,
+    create_train_state,
     load_jax_variables,
+    radam,
     restore_checkpoint,
     restore_params_only,
 )
@@ -119,8 +123,9 @@ def jax_checkpoint(tmp_path_factory):
                                 "batch_stats": shapes["batch_stats"]},
                                seed=3)
     tx = radam_jax(1e-4)
-    opt_state = jax.tree_util.tree_map(
-        lambda s: np.zeros(s.shape, s.dtype),
+    opt_state = jax.tree_util.tree_map_with_path(
+        lambda path, s: np.full(s.shape, 12 if getattr(
+            path[-1], "name", None) == "count" else 0, s.dtype),
         jax.eval_shape(tx.init, variables["params"]))
     state = TrainStateJax(step=np.asarray(12, np.int32),
                           params=variables["params"],
@@ -161,9 +166,29 @@ def test_restore_params_only_reads_jax_checkpoint(jax_checkpoint):
 
 
 def test_restore_checkpoint_refuses_jax_optimizer_state(jax_checkpoint):
-    # the refusal comes before the state is touched
-    with pytest.raises(NotImplementedError, match="not ported"):
-        restore_checkpoint(jax_checkpoint[0], state=None)
+    """A JAX checkpoint resumes: the weights, RAdam's moments (f32, beside
+    each parameter) and the step, which becomes the update count. An
+    optimizer of another kind refuses the optax state, before the state is
+    touched."""
+    path, variables = jax_checkpoint
+    model = build_unet(dtype="float32")
+    state = create_train_state(model, radam(1e-4), "cpu")
+    assert restore_checkpoint(path, state) is state
+    assert state.step == 12 and state.optimizer.state["count"] == 12
+    sd = model.state_dict()
+    for k, v in from_jax_variables(variables).items():
+        assert torch.equal(sd[k], v), k
+    for p in model.parameters():
+        for name in ("exp_avg", "exp_avg_sq"):
+            m = state.optimizer.state[p][name]
+            assert m.dtype == torch.float32 and m.shape == p.shape
+            assert not m.any()
+
+    other = create_train_state(build_unet(dtype="float32"),
+                               create_optimizer("sgd", 1e-4), "cpu")
+    with pytest.raises(ValueError, match="does not fit SGD"):
+        restore_checkpoint(path, other)
+    assert other.step == 0 and other.optimizer.state["count"] == 0
 
 
 def test_test_and_pack_serves_jax_checkpoint(jax_checkpoint, tmp_path):

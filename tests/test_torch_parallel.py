@@ -19,7 +19,11 @@ the parent compares:
   (e) the augmentation: each rank's rows equal the one-process output's;
   and one epoch of `cli.train` on the two ranks, whose checkpoint rank 0
   alone writes and whose weights agree with a one-rank run's.
-  (f) `run_mesh_step(2, hw=32)` on that pair returns a finite loss.
+  (f) `run_mesh_step(2, hw=32)` on that pair returns a finite loss;
+  (g) the dense blocks' train layouts on the pair: the global-batch step
+      with every block 'fused' and rematerialised against the JAX step as
+      in (a); a 'fused', 'buffer' or rematerialised DenseBlock on the
+      'data' axis and as a 'space' 2 grid against the one-process block.
 """
 import json
 import os
@@ -33,9 +37,11 @@ from saunet_tpu_torch.cli.train import main as train_main
 from saunet_tpu_torch.cli.train import parse_args
 from saunet_tpu_torch.data import make_augment_fn
 from saunet_tpu_torch.models import build_unet
+from saunet_tpu_torch.models.densenet import DenseBlock
+from saunet_tpu_torch.models.init import init_random_
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from saunet_tpu_torch.parallel.launch import rank_log, run_ranks
-from saunet_tpu_torch.parallel.parity import build_model
+from saunet_tpu_torch.parallel.parity import bn_buffers, build_model
 from saunet_tpu_torch.train import (
     create_train_state,
     intersection_and_union,
@@ -83,6 +89,23 @@ def _padded(batch):
     b = {k: np.concatenate([v[:3], v[2:3]]) for k, v in batch.items()}
     b["valid"] = np.array([1, 1, 1, 0], np.float32)
     return b
+
+
+# (g): the SAUNet layout the global-batch step runs in (the other layouts'
+# steps are held to the JAX step in one process, by
+# tests/test_torch_dense_block_train.py), and the DenseBlock(16, 2) layouts,
+# (mode, remat, space), on the 'data' axis (2 + 2 samples) and as a
+# 'space' 2 grid (4 + 4 of 8 rows)
+LAYOUT_STEPS = {"fused_remat": dict(encoder_concat="fused", remat=True)}
+DENSE_LAYOUTS = {f"{mode}{'_remat' if remat else ''}_{grid}":
+                 (mode, remat, space)
+                 for mode, remat in (("fused", False), ("fused", True),
+                                     ("buffer", False), ("chain", True))
+                 for grid, space in (("data", 1), ("space2", 2))}
+
+
+def _dense_input():
+    return np.random.RandomState(9).randn(4, 16, 8, 8).astype(np.float32)
 
 
 def _augment_input():
@@ -142,6 +165,13 @@ def ranks(work, weights, acdc):
         "cli": ("cli_case", dict(argv=_cli_argv(
             acdc, path, str(work / "ckpt2"), 4))),
         "dryrun": ("dryrun_case", dict(hw=32)),
+        **{f"train_{name}": ("train_case", dict(
+            weights=path, batch=g, lr=GOLDEN_LR, model_kwargs=kwargs))
+           for name, kwargs in LAYOUT_STEPS.items()},
+        **{f"dense_{name}": ("dense_block_case", dict(
+            x=_dense_input(), layers=2, seed=3, space=space,
+            concat_mode=mode, remat=remat))
+           for name, (mode, remat, space) in DENSE_LAYOUTS.items()},
     }
     logs = str(work / "ranks")
     os.makedirs(logs)
@@ -180,9 +210,25 @@ def _max_update_gap(new, ref, old):
 
 @pytest.mark.parametrize("fix_bn", [False, True], ids=["train_bn", "fix_bn"])
 def test_global_step_matches_jax_and_one_process(fix_bn, ranks, weights):
-    results, _ = ranks
+    _check_global_step(ranks[0][0]["fix_bn" if fix_bn else "train_bn"],
+                       weights, fix_bn)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUT_STEPS))
+def test_layout_global_step_matches_jax_and_one_process(layout, ranks,
+                                                        weights):
+    """(g): the global-batch step with every dense block in `layout`
+    (synced BatchNorm inside the fused block's forward and its backward's
+    recompute, and inside the rematerialised blocks' recompute) against
+    the JAX step, as (a); both ranks end with the same weights."""
+    _check_global_step(ranks[0][0][f"train_{layout}"], weights, False,
+                       one_process=False)
+    r0, r1 = (r[f"train_{layout}"] for r in ranks[0])
+    assert torch.equal(r0["digest"], r1["digest"])
+
+
+def _check_global_step(r0, weights, fix_bn, one_process=True):
     path, variables = weights
-    r0 = results[0]["fix_bn" if fix_bn else "train_bn"]
     golden = dict(np.load(GOLDEN_TRAIN_STEP))
     prefix = "fix_bn/" if fix_bn else ""
 
@@ -218,6 +264,8 @@ def test_global_step_matches_jax_and_one_process(fix_bn, ranks, weights):
             np.testing.assert_allclose(v, golden[f"batch_stats/{k}"],
                                        rtol=1e-5, atol=2e-5, err_msg=k)
 
+    if not one_process:
+        return
     # the port's one-process step on the same global batch
     model, metrics = _one_process_step(path, golden_batch(), fix_bn)
     for k in LOSS_PARTS:
@@ -359,3 +407,37 @@ def test_run_mesh_step_two_ranks(ranks):
     both ranks."""
     losses = [res["dryrun"] for res in ranks[0]]
     assert np.isfinite(losses[0]) and losses[0] == losses[1], losses
+
+
+@pytest.mark.parametrize("case", list(DENSE_LAYOUTS))
+def test_dense_layout_on_two_ranks_matches_one_process(case, ranks):
+    """(g): the block's outputs (assembled from the ranks' samples or
+    rows), the loss, the parameter gradients averaged over the ranks and
+    the running statistics, against the one-process block on the whole
+    input: the fused block's statistics over the group, its 3x3 halo rows
+    fetched in the forward and again in the backward's recompute, and the
+    rematerialised block's recompute under the forward's group."""
+    mode, remat, space = DENSE_LAYOUTS[case]
+    x = torch.from_numpy(_dense_input())
+    block = init_random_(DenseBlock(16, 2, mode),
+                         torch.Generator().manual_seed(3)).train()
+    y = block(x)
+    loss = torch.sum(y * y) / y.numel()
+    loss.backward()
+    y = y.detach()
+    res = [r[f"dense_{case}"] for r in ranks[0]]
+    out = torch.cat([r["out"] for r in res], 2 if space > 1 else 0)
+    np.testing.assert_allclose(out.numpy(), y.numpy(), rtol=0,
+                               atol=1e-5 * float(y.abs().max()))
+    np.testing.assert_allclose(res[0]["loss"], float(loss.detach()),
+                               rtol=1e-5)
+    for k, p in block.named_parameters():
+        a = p.grad.numpy()
+        for r in res:
+            np.testing.assert_allclose(r["grads"][k].numpy(), a, rtol=0,
+                                       atol=1e-5 * max(np.abs(a).max(), 1.0),
+                                       err_msg=k)
+    for k, v in bn_buffers(block).items():
+        for r in res:
+            np.testing.assert_allclose(r["buffers"][k].numpy(), v.numpy(),
+                                       rtol=0, atol=1e-5, err_msg=k)

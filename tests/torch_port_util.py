@@ -226,6 +226,47 @@ def write_train_step_golden(path: str = GOLDEN_TRAIN_STEP) -> None:
     np.savez_compressed(path, **out)
 
 
+GOLDEN_RESUME = os.path.join(os.path.dirname(__file__), "torch_golden",
+                             "resume_32.npz")
+# The resumed golden step: the golden step's variables and batch, taken up
+# at step RESUME_COUNT with RAdam moments from `fill_opt_state`
+# (RESUME_SEED) and radam(RESUME_LR). Count 7 makes update 8, RAdam's
+# adaptive branch, where each element's update is m / sqrt(v): the moments
+# are drawn large enough to lead it, since at this size the f32 train-mode
+# gradient of some leaves moves by 1% with the summation order, and the
+# update would carry that to the scale of the largest. The learning rate
+# keeps the updates far above the parameters' f32 rounding.
+# tests/torch_golden/make_resume_32.py writes it.
+RESUME_COUNT, RESUME_SEED, RESUME_LR = 7, 11, 0.1
+# the SegmentationModule golden's predict and infer_loss take the golden
+# batch's first FACADE_SAMPLES samples (eval mode: no batch statistics)
+FACADE_SAMPLES = 2
+
+
+def fill_opt_state(tx, params, count: int, seed: int):
+    """The optax state `tx.init(params)` would have after `count` updates,
+    from `jax.eval_shape(tx.init, ...)` filled from a numpy seed (a live
+    init of the whole SAUNet's state takes seconds): every `count` leaf
+    `count`, second moments (`nu`) 0.1 * (0.5 + U(0, 1)), first moments
+    and traces 0.3 * N(0, 1), f32 draws in tree order. Leaves are numpy."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(
+        jax.eval_shape(tx.init, params))
+    out = []
+    for path, leaf in leaves:
+        names = [str(getattr(p, "name", getattr(p, "key", p))) for p in path]
+        if names[-1] == "count":
+            v = np.full(leaf.shape, count, leaf.dtype)
+        elif "nu" in names:
+            v = 0.1 * (0.5 + rng.random(leaf.shape, np.float32))
+        else:
+            v = 0.3 * rng.standard_normal(leaf.shape, np.float32)
+        out.append(np.asarray(v, leaf.dtype))
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
 GOLDEN_SALIENCY = os.path.join(os.path.dirname(__file__), "torch_golden",
                                "saliency_32.npz")
 SALIENCY_SEED, SALIENCY_N, SALIENCY_BATCH = 2, 4, 2
