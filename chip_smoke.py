@@ -52,6 +52,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      versions and the library calls (torch.gather, grid_sample), and the
      device times (torch.profiler) of the kernels, grid_sample x2 and
      torch.gather's own kernel.
+  6b. paired transforms (data/transforms.py) on 64 slices at 256^2: every
+     geometric transform (rotate, on one image and on three channels,
+     translate, center and random crop to 224, free scale, a 2x scale of
+     the shorter side, whose .5 source rows the mask rounds half to even,
+     random-sized crop, random sized) through the resample kernel, K5's
+     gather onto a grid of its own shape; counters zeroed just before and
+     read just after: one resample launch a resample call; each call exact
+     against `resample_plain`. The kernel's median time at (64, 256, 256)
+     -> (64, 224, 224) beside its plain version, grid_sample x2 (bilinear
+     image, nearest mask) and its bound, and device times.
   7. train step: full-width bf16 SAUNet, 64 slices at 224^2,
      `make_augment_fn` + `make_train_step` with radam(1e-4). Counters zeroed
      just before one step and read just after: 1 warp, 1 Canny, no dense
@@ -60,6 +70,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      and optimizer, a torch.profiler window (top operations, device idle
      share); on a fixed batch with lr 1e-3 the loss after 10 steps is below
      the first.
+  7b. trajectory gate: `saunet_tpu_torch.cli.fidelity`'s card config, 50
+     f32 steps at 64^2, batch 4, radam(1e-3), TF32 off, from the JAX
+     package's golden weights (`fill_from_seed_`) on phantom batches,
+     against the JAX package's losses (tests/torch_golden/trajectory.npz):
+     every step within 0.02 relative, the first within 2e-3; counters
+     zeroed just before and read just after: one Canny a step, nothing
+     else; K1 exact (0 flips) on every input; the gate's seconds.
   8. train CLI: synthetic volumes through `saunet_tpu_torch.cli.train`
      for one epoch at crop 224 on the card: per-class IoU printed, best.json
      and a checkpoint written; counters zeroed just before and read just
@@ -99,7 +116,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      how far two runs of the plain route differ.
   10. data parallel, ranks spawned by package code (parallel.launch), each
      asserting it never imported jax: two ranks of the full-width bf16
-     SAUNet at 224^2, global batch 64 (2 x 32), sharing the card over gloo
+     SAUNet at 224^2 (seeded weights, BN statistics calibrated as phase 4's
+     are, so K3 on the ranks sees inputs of the infer phase's scale),
+     global batch 64 (2 x 32), sharing the card over gloo
      (NCCL over two cards where there are two). Each rank's eval batch
      first (1 Canny and 4 dense-block launches a rank; IoU counts summed
      over the ranks equal to the one-process eval of the same rows), then
@@ -113,15 +132,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      and K3 call of the ranks' eval and step is recorded and held against
      the plain version on the same inputs (and again on the first 4 rows,
      the train CLI's per-rank batch): K1 exact, K5 and K3 at phases 6 and
-     3's tolerances. Step ms, gradient all-reduce ms (host window of the
-     DDP buckets) and peak memory per rank; two ranks on one card
-     over gloo measure correctness, not scaling. Then `cli.train` under
-     torchrun on 2 ranks (2 x 4), one epoch at crop 224 on phase 8's
-     volumes: per-class IoU printed once, one checkpoint and best.json,
-     served by test_and_pack. Then one rank on NCCL: the mesh step (DDP,
-     synced BatchNorm) against the plain step in turns at b32, and the
-     NCCL kernels' device time; its K1 and K5 calls held against the plain
-     versions as above.
+     3's tolerances, K3's max|ref| printed and at most
+     K3_SCALE_FACTOR_MAX times phase 3's. Step ms, gradient all-reduce
+     ms (host window of the DDP buckets) and peak memory per rank; two
+     ranks on one card over gloo measure correctness, not scaling. Then
+     `cli.train` under torchrun on 2 ranks (2 x 4), one epoch at crop 224
+     on phase 8's volumes: per-class IoU printed once, one checkpoint
+     and best.json, served by test_and_pack. Then one rank on NCCL: the
+     mesh step (DDP, synced BatchNorm) against the plain step in turns at
+     b32, and the NCCL kernels' device time; its K1 and K5 calls held
+     against the plain versions as above.
   11. the 'space' axis: two ranks as a ('data' 1, 'space' 2) grid share
      the card over gloo, each holding half the rows of every image. The
      f32 eval of 8 slices at 512^2 (one padded; TF32 off; the plain
@@ -383,7 +403,8 @@ def phase_dense_block(model, folded, images):
         blocks.append({"shape": list(x.shape), "layers": num_layers,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_bound,
                        "bound_by": b_by, "device_ms": split,
-                       "max_abs_err": max_err, "median_abs_err": med})
+                       "max_abs_err": max_err, "median_abs_err": med,
+                       "max_abs_ref": tol / 0.05})
         total_ms += ms
         total_plain += plain_ms
         worst = max(worst, max_err / tol)
@@ -392,6 +413,7 @@ def phase_dense_block(model, folded, images):
     log(f"dense blocks: kernel {total_ms:.4f} ms in all, bound "
         f"{bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": worst_err, "max_err_over_tol": worst,
+            "max_abs_ref": max(b["max_abs_ref"] for b in blocks),
             "ms": total_ms, "plain_ms": total_plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "blocks": blocks}
 
@@ -454,7 +476,8 @@ def phase_main_path(model, state, images):
     launches = _counts()
     log(f"infer path launches: {launches}")
     require(launches == {"canny": 1, "dense_block": 4, "warp": 0,
-                         "gather": 0, "shape_stream": 0},
+                         "gather": 0, "shape_stream": 0,
+                         "resample": 0},
             f"main path did not run each kernel as expected: {launches}")
     require(preds.shape == (BATCH, SIZE, SIZE), f"preds {preds.shape}")
     require(bool(torch.isfinite(probs).all()), "probs not finite")
@@ -652,7 +675,8 @@ def phase_shape_stream(model, state, images):
     launches = _counts()
     log(f"K4 route launches: {launches}")
     require(launches == {"canny": 1, "dense_block": 4, "warp": 0,
-                         "gather": 0, "shape_stream": 1},
+                         "gather": 0, "shape_stream": 1,
+                         "resample": 0},
             f"K4 route did not run each kernel as expected: {launches}")
     _, preds, _ = step(state, images)
     agree = float((seg.argmax(1) == preds).float().mean())
@@ -878,6 +902,7 @@ def _counts():
         canny_edges_cuda,
         dense_block,
         gather_image,
+        resample,
         shape_stream_fused,
         warp_image_label,
     )
@@ -885,7 +910,8 @@ def _counts():
             "dense_block": dense_block.launches,
             "warp": warp_image_label.launches,
             "gather": gather_image.launches,
-            "shape_stream": shape_stream_fused.launches}
+            "shape_stream": shape_stream_fused.launches,
+            "resample": resample.launches}
 
 
 def _zero_counts():
@@ -969,7 +995,8 @@ def phase_train_step(device):
     launches = _counts()
     log(f"train step launches: {launches}")
     require(launches == {"canny": 1, "dense_block": 0, "warp": 1,
-                         "gather": 0, "shape_stream": 0},
+                         "gather": 0, "shape_stream": 0,
+                         "resample": 0},
             f"train step did not run each kernel as expected: {launches}")
     parts = {k: float(metrics[k]) for k in ("loss", "ce", "dice", "edge")}
     log(f"train step loss parts: {parts}, acc {float(metrics['acc']):.4f}")
@@ -1049,6 +1076,224 @@ def phase_train_step(device):
                       "fixed_batch_losses": losses}
 
 
+# the paired transforms' batch: (64, 256, 256) slices, the crops at 224^2
+TRANSFORM_HW, CROP = 256, 224
+# the resample's work per output pixel (csrc/warp.cu): floors and fractions
+# 4, two weights 2, tap bounds 16, offsets 12, combine 9, nearest rounding,
+# bounds and offset 12
+RESAMPLE_OPS_PER_PIXEL = 55
+
+
+def resample_bytes(x, m, sy, sx) -> int:
+    """The bytes the resample must move on these inputs: sy and sx read
+    and both outputs written once an output pixel, and once each input
+    pixel that a tap reads: an image pixel under a bilinear tap of nonzero
+    weight inside the image, a mask pixel under a nearest tap inside it
+    (a crop reads only its window, not the whole plane)."""
+    import torch
+
+    n, h, w = m.shape
+    c = x.shape[-1] if x.dim() == 4 else 1
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    fy, fx = sy - y0, sx - x0
+
+    def pixels_read(taps) -> int:
+        read = torch.zeros(n, h * w + 1, dtype=torch.bool, device=m.device)
+        for yi, xi, used in taps:
+            inside = used & (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+            read.scatter_(1, torch.where(inside, idx, h * w).reshape(n, -1),
+                          True)
+        return int(read[:, :h * w].sum())
+
+    image = pixels_read([(y0, x0, (fy < 1) & (fx < 1)),
+                         (y0, x0 + 1, (fy < 1) & (fx > 0)),
+                         (y0 + 1, x0, (fy > 0) & (fx < 1)),
+                         (y0 + 1, x0 + 1, (fy > 0) & (fx > 0))])
+    mask = pixels_read([(torch.round(sy), torch.round(sx),
+                         torch.ones_like(sy, dtype=torch.bool))])
+    return 4 * (c * image + mask) + (8 + 4 * c + 4) * sy.numel()
+
+
+@contextlib.contextmanager
+def _record_resample_calls():
+    """Record every call the paired transforms make to the resample kernel
+    (its inputs and outputs) while the block runs."""
+    import saunet_tpu_torch.data.transforms as transforms_mod
+
+    kernel, seen = transforms_mod.resample, []
+
+    def recording(*args):
+        out = kernel(*args)
+        seen.append((args, out))
+        return out
+
+    transforms_mod.resample = recording
+    try:
+        yield seen
+    finally:
+        transforms_mod.resample = kernel
+
+
+def phase_transforms(device):
+    """Phase 6b: the paired transforms (data/transforms.py) on a batch of
+    BATCH slices at TRANSFORM_HW^2 on the card, every geometric one through
+    the resample kernel (K5's gather onto a grid of its own shape): rotate
+    (one image and three channels), translate, center and random crop to
+    CROP, free scale, a 2x scale of the shorter side (its odd rows and
+    columns sample at .5: the mask rounds half to even), random-sized crop
+    and random sized. Counters zeroed just before and read just after: one
+    resample launch a resample call, nothing else. Each call's image and
+    mask exact against `resample_plain` on the same inputs. Then the
+    kernel at (BATCH, 256, 256) -> (BATCH, 224, 224) on the random-sized
+    crop's coordinates (median of 20, CUDA events), beside its plain
+    version and F.grid_sample (bilinear image + nearest mask), its bound,
+    and device times (torch.profiler)."""
+    import torch
+    import torch.nn.functional as F
+
+    from saunet_tpu_torch.data import transforms as T
+    from saunet_tpu_torch.ops.cuda import resample, resample_plain
+
+    hw = TRANSFORM_HW
+    img, lab = synthetic_labelled(BATCH, hw, hw,
+                                  torch.Generator().manual_seed(31), device)
+    rgb = torch.stack([img, img.flip(2), 255.0 - img], dim=-1)
+    cases = [("random_rotate", T.random_rotate(30.0), img),
+             ("random_rotate_rgb", T.random_rotate(180.0), rgb),
+             ("random_translate", T.random_translate((16, 16)), img),
+             ("center_crop", T.center_crop(CROP), img),
+             ("random_crop", T.random_crop(CROP), img),
+             ("free_scale", T.free_scale((CROP, CROP)), img),
+             ("scale_shorter_side_2x", T.scale_shorter_side(2 * hw,
+                                                            (hw, hw)), img),
+             ("random_sized_crop", T.random_sized_crop(CROP), img),
+             ("random_sized", T.random_sized(CROP), img)]
+    gen = torch.Generator(device=device).manual_seed(32)
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _record_resample_calls() as seen:
+        outs = {name: t(gen, x, lab) for name, t, x in cases}
+    torch.cuda.synchronize()
+    launches = _counts()
+    log(f"transforms launches: {launches} for {len(seen)} resample calls")
+    require(launches == {"canny": 0, "dense_block": 0, "warp": 0,
+                         "gather": 0, "shape_stream": 0,
+                         "resample": len(seen)} and len(seen) == 10,
+            "the transforms did not run the resample kernel as expected")
+    mismatches = {}
+    for (args, (out_i, out_m)), label in zip(
+            seen, [n for n, _, _ in cases] + ["random_sized (crop)"]):
+        ref_i, ref_m = resample_plain(*args)
+        torch.cuda.synchronize()
+        mismatches[label] = (int((out_i != ref_i).sum()),
+                             int((out_m != ref_m).sum()))
+    log(f"transforms, resample kernel against its plain version (image, "
+        f"mask mismatches): {mismatches}")
+    require(all(v == (0, 0) for v in mismatches.values()),
+            "the resample kernel disagrees with its plain version")
+    for name, (oi, om) in outs.items():
+        require(bool(torch.isfinite(oi).all()), f"{name}: not finite")
+    shapes = {name: [list(oi.shape), list(om.shape)]
+              for name, (oi, om) in outs.items()}
+    require(shapes["center_crop"] == [[BATCH, CROP, CROP], [BATCH, CROP,
+                                                            CROP]]
+            and shapes["random_rotate_rgb"][0] == [BATCH, hw, hw, 3],
+            f"transform output shapes {shapes}")
+    # a 2x upscale: odd output rows read .5 source rows, which the mask
+    # rounds to the even neighbour
+    sy = seen[6][0][2]
+    ties = int((sy - torch.floor(sy) == 0.5).sum())
+    log(f"2x scale of the shorter side: {ties} of {sy.numel()} mask taps "
+        f"at .5 rows, exact")
+
+    (x, m, sy, sx), _ = seen[7]
+    ho, wo = sy.shape[1:]
+    px_out = sy.numel()
+    nbytes = resample_bytes(x, m, sy, sx)
+    ms = cuda_ms(lambda: resample(x, m, sy, sx))
+    plain_ms = cuda_ms(lambda: resample_plain(x, m, sy, sx))
+    grid = torch.stack([sx / (hw - 1) * 2 - 1, sy / (hw - 1) * 2 - 1],
+                       dim=-1)
+    x4, m4 = x[:, None], m[:, None].float()
+
+    def library():
+        F.grid_sample(x4, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=True)
+        F.grid_sample(m4, grid, mode="nearest", padding_mode="zeros",
+                      align_corners=True)
+
+    library_ms = cuda_ms(library)
+    bound_ms, bound_by = bound(nbytes,
+                               RESAMPLE_OPS_PER_PIXEL * px_out,
+                               F32_OPS_PER_S)
+    dev_ms = sum(device_ms_by_kernel(
+        lambda: resample(x, m, sy, sx), 20).values())
+    library_dev = sum(device_ms_by_kernel(library, 20).values())
+    log(f"resample ({BATCH}, {hw}, {hw}) -> ({BATCH}, {ho}, {wo}): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample x2 "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes} bytes, {nbytes / (16 * px_out + 8 * x.numel()):.4f} of a "
+        f"whole-plane read); device "
+        f"ms: kernel {dev_ms:.5f}, grid_sample x2 {library_dev:.5f}")
+    return launches, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "device_ms": dev_ms,
+                      "library_device_ms": library_dev,
+                      "shape": [BATCH, hw, hw, ho, wo], "bytes": nbytes,
+                      "mismatches": mismatches, "half_ties": ties,
+                      "shapes": shapes}
+
+
+def phase_trajectory(device):
+    """Phase 7b: the trajectory gate (`saunet_tpu_torch.cli.fidelity`'s
+    'card' config: 50 f32 steps at 64^2, batch 4, radam(1e-3), TF32 off)
+    against the JAX package's losses in tests/torch_golden/trajectory.npz:
+    the largest per-step relative difference below 0.02, the first below
+    2e-3. Counters zeroed just before and read just after: one Canny a
+    step, nothing else; K1 exact (0 flips) against the plain Canny on
+    every gray batch it was given."""
+    import torch
+
+    from saunet_tpu_torch.cli import fidelity as gate
+
+    golden = gate.load_golden("card")
+    steps = gate.CONFIGS["card"]["steps"]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _record_k1_inputs() as seen:
+        port = gate.run_trajectory("card", device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    res = gate.compare(port, golden, "card")
+    for i in range(steps):
+        log(f"trajectory step {i + 1}: port {port['loss'][i]:.6f} jax "
+            f"{float(golden['loss'][i]):.6f} rel {res['rel_diff'][i]:.3e}")
+    log(f"trajectory launches: {launches}; {seconds:.3f} s for {steps} "
+        f"steps; largest relative loss difference {res['max_rel_diff']:.4e}"
+        f", first {res['first_rel_diff']:.4e}")
+    require(launches == {"canny": steps, "dense_block": 0, "warp": 0,
+                         "gather": 0, "shape_stream": 0, "resample": 0},
+            "the trajectory did not launch K1 once a step")
+    flips = _k1_flips(seen)
+    log(f"trajectory K1 against the plain Canny on {len(seen)} inputs: "
+        f"{flips} flips")
+    require(flips == 0, "K1 disagrees with the plain Canny")
+    require(res["ok"], f"the trajectory leaves the JAX package's: largest "
+                       f"{res['max_rel_diff']:.4e} (bound "
+                       f"{gate.MAX_REL_DIFF['card']}), first "
+                       f"{res['first_rel_diff']:.4e} (bound "
+                       f"{gate.FIRST_REL_DIFF})")
+    return launches, {"steps": steps, "seconds": seconds,
+                      "max_rel_diff": res["max_rel_diff"],
+                      "first_rel_diff": res["first_rel_diff"],
+                      "rel_diff": res["rel_diff"], "loss": port["loss"],
+                      "jax_loss": golden["loss"].tolist(), "k1_flips": flips,
+                      "step_seconds": port["seconds"]}
+
+
 def _write_train_volumes(root, rs, patients=3, shape=(256, 256, 6)):
     """Synthetic ACDC training volumes: an ellipse in three classes."""
     import numpy as np
@@ -1123,7 +1368,8 @@ def phase_train_cli(device, tmp):
     require(len(ious) == 3, "per-class IoU not printed")
     require(launches == {"canny": steps + val_batches,
                          "dense_block": 4 * val_batches, "warp": steps,
-                         "gather": 0, "shape_stream": 0},
+                         "gather": 0, "shape_stream": 0,
+                         "resample": 0},
             f"train CLI did not run each kernel as expected: {launches}")
     run = parse_args(argv).ckpt
     files = sorted(os.listdir(run))
@@ -1412,7 +1658,8 @@ def phase_layouts(device, tmp, root) -> tuple:
         r = chain if name == "chain" else _layout_step(
             device, start, batch, mode, remat, timed=True)
         want = {"canny": 1, "dense_block": 0, "warp": 1, "gather": 0,
-                "shape_stream": 0}
+                "shape_stream": 0,
+                "resample": 0}
         require(r["launches"] == want,
                 f"layout {name}: launches {r['launches']}")
         rel = {k: abs(r["parts"][k] - chain["parts"][k])
@@ -1503,7 +1750,8 @@ def phase_layouts(device, tmp, root) -> tuple:
             f"launches {counts}")
         require(counts == {"canny": steps + val_batches,
                            "dense_block": 4 * val_batches, "warp": steps,
-                           "gather": 0, "shape_stream": 0},
+                           "gather": 0, "shape_stream": 0,
+                           "resample": 0},
                 f"fused train CLI launches {counts}")
         require(out.count("class [") == 3, "per-class IoU not printed")
         saved = torch.load(os.path.join(run, f"state_epoch_{epochs}.pt"),
@@ -1611,7 +1859,8 @@ def phase_saliency(device, root, ckpt, tmp):
         f"launches {launches}")
     require(launches == {"canny": sum(SALIENCY_METHODS.values()),
                          "dense_block": 0, "warp": 0, "gather": 0,
-                         "shape_stream": 0},
+                         "shape_stream": 0,
+                         "resample": 0},
             f"saliency did not run each kernel as expected: {launches}")
     cli_flips = _k1_flips(cli_inputs)
     log(f"saliency CLI K1: {len(cli_inputs)} inputs of shapes "
@@ -1725,22 +1974,31 @@ DDP_STATS_RTOL, DDP_STATS_ATOL = 1e-2, 1e-3
 DDP_UPDATE_GAP_MAX = 0.1
 _PARITY_NAMES = {"canny_edges_cuda": "canny", "dense_block": "dense_block",
                  "warp_image_label": "warp", "gather_image": "gather",
-                 "shape_stream_fused": "shape_stream"}
+                 "shape_stream_fused": "shape_stream",
+                 "resample": "resample"}
 
 
 def _by_kernel(counts: dict) -> dict:
     return {_PARITY_NAMES[k]: v for k, v in counts.items()}
 
 
-def _ddp_kernel_parity(runs) -> dict:
+# K3's inputs on the ranks come from calibrated weights (phase 10 builds its
+# model as `build_model` does): their max|ref| must be of the infer phase's
+# order, at most this factor above phase 3's
+K3_SCALE_FACTOR_MAX = 10.0
+
+
+def _ddp_kernel_parity(runs, k3_scale=None) -> dict:
     """Every K1, K5 and K3 result that ranks recorded on their eval batch
     and train step (`parity.timed_case`; `runs`: [(label, result)]), and
     the kernel again on the first rows of each input, against the plain
     version on the same inputs: K1 exact (0 flips, as in phase 9), K5
     within 1e-6 max|ref| with exact labels (phase 6), K3 within 0.05
-    max|ref| with the median below a tenth of that (phase 3). Each rank
-    must have recorded as many calls as its counters read. Returns, a
-    kernel, the shapes, calls and worst errors."""
+    max|ref| with the median below a tenth of that (phase 3), on inputs
+    whose max|ref| is at most K3_SCALE_FACTOR_MAX times phase 3's
+    `k3_scale` (None where the ranks run no K3). Each rank must have
+    recorded as many calls as its counters read. Returns, a kernel, the
+    shapes, calls and worst errors."""
     calls = {"canny": [], "warp": [], "dense_block": []}
     for label, x in runs:
         parts = [("eval", x["eval"])] if "eval" in x else []
@@ -1777,7 +2035,15 @@ def _ddp_kernel_parity(runs) -> dict:
                         for c in checked),
                     f"K3 on the ranks disagrees with the plain dense "
                     f"block: {checked}")
+            scale = max(c["scale"] for c in checked)
+            require(k3_scale is not None
+                    and scale <= K3_SCALE_FACTOR_MAX * k3_scale,
+                    f"K3 on the ranks at max|ref| {scale:.6g}, beyond "
+                    f"{K3_SCALE_FACTOR_MAX} x the infer phase's "
+                    f"{k3_scale}: are the weights calibrated?")
             worst = {"max_abs_err": max(c["max_abs_err"] for c in checked),
+                     "max_abs_ref": scale,
+                     "infer_phase_max_abs_ref": k3_scale,
                      "max_err_over_tol": max(c["max_abs_err"]
                                              / (0.05 * c["scale"])
                                              for c in checked)}
@@ -1850,14 +2116,16 @@ def _ddp_reference(device, wpath, batch, eval_batch, per_rank):
     return ref
 
 
-def phase_data_parallel(device, tmp, root):
-    """Phase 10: the data-parallel step, eval and train CLI on ranks."""
+def phase_data_parallel(device, tmp, root, k3_scale: float):
+    """Phase 10: the data-parallel step, eval and train CLI on ranks, from
+    seeded weights calibrated as `build_model` calibrates them (K3 is held
+    on the ranks' inputs at the infer phase's scale, `k3_scale`)."""
     import numpy as np
     import torch
 
     from saunet_tpu_torch.data import edge_ground_truth, normalize_for_eval
     from saunet_tpu_torch.models import build_unet
-    from saunet_tpu_torch.models.init import init_random_
+    from saunet_tpu_torch.models.init import calibrate_bn_, init_random_
     from saunet_tpu_torch.parallel.launch import run_ranks
 
     cards = torch.cuda.device_count()
@@ -1868,12 +2136,16 @@ def phase_data_parallel(device, tmp, root):
            "correctness, not scaling (gloo stages every all-reduce "
            "through the host)" if cards < DDP_RANKS else
            "NCCL, a card a rank"))
-    model = init_random_(build_unet(dtype="bfloat16"),
-                         torch.Generator().manual_seed(11))
+    gen = torch.Generator().manual_seed(11)
+    model = init_random_(build_unet(dtype="bfloat16"), gen).to(device)
+    calib = normalize_for_eval(synthetic_slices(8, SIZE, SIZE, gen, device))
+    calibrate_bn_(model, calib.permute(0, 3, 1, 2))
     wpath = os.path.join(tmp, "ddp_weights.pt")
-    torch.save(model.state_dict(), wpath)
-    start = {k: v.detach().clone() for k, v in model.named_parameters()}
-    del model
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, wpath)
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.named_parameters()}
+    del model, calib
+    torch.cuda.empty_cache()
     img, lab = synthetic_labelled(BATCH, SIZE, SIZE,
                                   torch.Generator().manual_seed(12), "cpu")
     batch = {"image": img.numpy(), "label": lab.numpy()}
@@ -1907,7 +2179,8 @@ def phase_data_parallel(device, tmp, root):
         got = _by_kernel(x["eval"]["launches"])
         log(f"rank {r} eval launches: {got}")
         require(got == {"canny": 1, "dense_block": 4, "warp": 0,
-                        "gather": 0, "shape_stream": 0},
+                        "gather": 0, "shape_stream": 0,
+                        "resample": 0},
                 f"rank {r} eval did not run each kernel as expected")
     inter = sum(x["eval"]["inter"] for x in res)
     union = sum(x["eval"]["union"] for x in res)
@@ -1929,7 +2202,8 @@ def phase_data_parallel(device, tmp, root):
         got = _by_kernel(x["launches"])
         log(f"rank {r} train step launches: {got}")
         require(got == {"canny": 1, "dense_block": 0, "warp": 1,
-                        "gather": 0, "shape_stream": 0},
+                        "gather": 0, "shape_stream": 0,
+                        "resample": 0},
                 f"rank {r} train step did not run each kernel as expected")
     parts = {k: float(res[0]["metrics"][k])
              for k in ("loss", "ce", "dice", "edge")}
@@ -1993,7 +2267,7 @@ def phase_data_parallel(device, tmp, root):
                     device=device.type, timeout=300)[0]
     require(one["backend"] == "nccl", f"one rank ran on {one['backend']}")
     parity = _ddp_kernel_parity([(f"rank {r}", x) for r, x in enumerate(res)]
-                                + [("the NCCL rank", one)])
+                                + [("the NCCL rank", one)], k3_scale)
     turn = {k: statistics.median(v) for k, v in one["turns_ms"].items()}
     log(f"one rank on NCCL, b{per_rank}, in turns {one['turns_ms']}: mesh "
         f"step {turn['mesh']:.3f} ms, the plain step with synced BatchNorm "
@@ -2210,7 +2484,8 @@ def phase_space(device, tmp, root):
         got = _by_kernel(x["eval"]["launches"])
         log(f"space rank {r} eval launches: {got}")
         require(got == {"canny": 1, "dense_block": 0, "warp": 0,
-                        "gather": 0, "shape_stream": 0},
+                        "gather": 0, "shape_stream": 0,
+                        "resample": 0},
                 f"space rank {r} eval did not run each kernel as expected")
     preds = np.concatenate([x["eval"]["preds"] for x in res], axis=1)
     flips = int((preds != evaluation["preds"]).sum())
@@ -2239,7 +2514,8 @@ def phase_space(device, tmp, root):
         got = _by_kernel(x["launches"])
         log(f"space rank {r} train step launches: {got}")
         require(got == {"canny": 1, "dense_block": 0, "warp": 1,
-                        "gather": 0, "shape_stream": 0},
+                        "gather": 0, "shape_stream": 0,
+                        "resample": 0},
                 f"space rank {r} train step did not run each kernel as "
                 f"expected")
     parts = {k: float(res[0]["metrics"][k])
@@ -2370,7 +2646,11 @@ def main() -> int:
     del model, state, images
     torch.cuda.empty_cache()
     warp = phase_warp(device)
+    transform_launches, transforms = phase_transforms(device)
+    torch.cuda.empty_cache()
     train_launches, train = phase_train_step(device)
+    torch.cuda.empty_cache()
+    trajectory_launches, trajectory = phase_trajectory(device)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, train_cli, root, ckpt = phase_train_cli(device, tmp)
@@ -2380,13 +2660,16 @@ def main() -> int:
         saliency_launches, saliency = phase_saliency(device, root, ckpt,
                                                      tmp)
         torch.cuda.empty_cache()
-        ddp_launches, ddp = phase_data_parallel(device, tmp, root)
+        ddp_launches, ddp = phase_data_parallel(device, tmp, root,
+                                                dense["max_abs_ref"])
         torch.cuda.empty_cache()
         space_launches, space = phase_space(device, tmp, root)
     require("jax" not in sys.modules, "the port imported jax")
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
-               "train_step": train_launches, "train_cli": cli_launches,
+               "transforms": transform_launches,
+               "train_step": train_launches,
+               "trajectory": trajectory_launches, "train_cli": cli_launches,
                "layouts": layout_launches,
                "saliency": saliency_launches, "ddp": ddp_launches,
                "space": space_launches}
@@ -2424,7 +2707,13 @@ def main() -> int:
               "library_device_ms": warp["library_device_ms"],
               "gather": warp["gather"],
               "ddp": ddp["kernel_parity"]["warp"],
-              "space": space["kernel_parity"]["warp"]})):
+              "space": space["kernel_parity"]["warp"]}),
+            ("resample", "warp.cu", "tools/exp_gather.py:166", transforms,
+             {"shape": transforms["shape"],
+              "device_ms": transforms["device_ms"],
+              "library_device_ms": transforms["library_device_ms"],
+              "mismatches": transforms["mismatches"],
+              "half_ties": transforms["half_ties"]})):
         total, counts = launches(name)
         require(total > 0, f"{name} was not launched on the main paths")
         kernels.append({
@@ -2439,7 +2728,9 @@ def main() -> int:
         f"{rates['plain_slices_per_s']:.3f}; serving "
         f"{ms_per_slice:.4f} ms/slice; train {train['slices_per_s']:.3f} "
         f"slices/s; guided SmoothGrad-{SMOOTHGRAD_N} "
-        f"{saliency['maps_per_s']:.4f} maps/s; total "
+        f"{saliency['maps_per_s']:.4f} maps/s; trajectory "
+        f"{trajectory['seconds']:.1f} s, largest relative loss difference "
+        f"{trajectory['max_rel_diff']:.4e}; total "
         f"{time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"infer": rates, "k4_route": {
@@ -2447,6 +2738,8 @@ def main() -> int:
                            "step_slices_per_s", "route_argmax_agreement",
                            "inputs_ms")},
         "serving_ms_per_slice": ms_per_slice, "train": train,
+        "transforms": {k: transforms[k] for k in ("shapes", "mismatches")},
+        "trajectory": trajectory,
         "train_cli": train_cli, "layouts": layouts, "saliency": saliency,
         "data_parallel": ddp, "space": space}))
     log(json.dumps({"kernels": kernels}))

@@ -4,7 +4,7 @@
 // kernel bodies k_lane, k_sub and k_flat gather an (N, H, W) image along W,
 // along H, or over the flat plane by int32 indices: the gather that the
 // augmentation warp (saunet_tpu/data/augment.py::_warp_image_label_packed)
-// is made of. Two entry points:
+// is made of. Three entry points:
 //
 //   gather_image_forward: K5's function exactly. out[n, y, x] =
 //     img[n, y, idx]      (lane),
@@ -12,13 +12,23 @@
 //     img[n].flat[idx]    (flat),   idx = idx[n, y, x].
 //   warp_forward: the warp itself. Bilinear image sample and nearest label
 //     sample at float source coordinates (sy, sx), zero fill outside.
+//   resample_forward: the paired transforms' resample
+//     (saunet_tpu/data/transforms.py::_resample, K5's per-image flat gather
+//     `_flat_gather` onto a coordinate grid of its own shape): C image
+//     planes and one mask plane a sample, (H, W), sampled at (sy, sx) of
+//     shape (Ho, Wo). See resample_kernel below for its numerics.
 //
 // Bound: memory. The gather reads an index and writes a value per pixel and
 // reads the image once (12 bytes a pixel); the warp reads sy, sx, one image
 // and one label value per pixel, since neighbouring pixels share their 2x2
 // taps through L1/L2, and writes two values (24 bytes a pixel). A few dozen
 // f32 operations per pixel are nothing beside that: at b64 and 224^2 the
-// bound is 0.023 ms for the warp and 0.0115 ms for a gather.
+// bound is 0.023 ms for the warp and 0.0115 ms for a gather. The resample
+// reads sy and sx (8 bytes an output pixel), writes C image values and a
+// mask value, and reads once each input pixel that its taps touch: at b64
+// from 256^2 onto 224^2 with C = 1, 0.0254 ms for a grid that reads whole
+// planes, less for a crop, which reads only its window (chip_smoke.py's
+// resample_bytes counts them on the run's coordinates).
 //
 // Design: the TPU packed the 2x2 image patch and the label patch into one
 // 8-lane bf16 row so that the warp became ONE gather, because gathers, not
@@ -138,6 +148,119 @@ warp_kernel(const float* __restrict__ img, const int* __restrict__ lab,
   }
 }
 
+// One output pixel of the resample at (y, x) in a sample's planes: the 4
+// bilinear taps' offsets and weights, and the nearest tap. The numerics are
+// the unpacked samplers' (saunet_tpu/data/augment.py::
+// _sample_bilinear_batched and _sample_nearest_batched): f32 taps, each 0
+// where its pixel lies outside the image, combined in the order
+//   (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * ((1 - fx) * v10 + fx * v11)
+// and the mask's tap at (rint(y), rint(x)), round half to even, 0 outside.
+struct ResamplePixel {
+  int o[4];       // tap offsets in a plane, clamped into it
+  bool in[4];     // tap inside the image
+  float fy, fx;   // fractions
+  int on;         // nearest tap's offset, clamped
+  bool in_n;      // nearest tap inside
+};
+
+__device__ __forceinline__ ResamplePixel resample_pixel(int h, int w, float y,
+                                                        float x) {
+  ResamplePixel p;
+  const float y0 = floorf(y), x0 = floorf(x);
+  p.fy = y - y0;
+  p.fx = x - x0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float yy = y0 + (float)(k >> 1), xx = x0 + (float)(k & 1);
+    p.in[k] = yy >= 0.0f && yy < (float)h && xx >= 0.0f && xx < (float)w;
+    // clamping in float keeps far or NaN coordinates from overflowing the
+    // int conversion
+    p.o[k] = (int)fminf(fmaxf(yy, 0.0f), (float)(h - 1)) * w
+             + (int)fminf(fmaxf(xx, 0.0f), (float)(w - 1));
+  }
+  const float yn = rintf(y), xn = rintf(x);
+  p.in_n = yn >= 0.0f && yn < (float)h && xn >= 0.0f && xn < (float)w;
+  p.on = (int)fminf(fmaxf(yn, 0.0f), (float)(h - 1)) * w
+         + (int)fminf(fmaxf(xn, 0.0f), (float)(w - 1));
+  return p;
+}
+
+__device__ __forceinline__ float resample_value(const float* __restrict__ im,
+                                                const ResamplePixel& p) {
+  float t[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float v = __ldg(im + p.o[k]);
+    t[k] = p.in[k] ? v : 0.0f;
+  }
+  const float gy = 1.0f - p.fy, gx = 1.0f - p.fx;
+  return gy * (gx * t[0] + p.fx * t[1]) + p.fy * (gx * t[2] + p.fx * t[3]);
+}
+
+// Grid (tiles of an output plane, samples). Each thread takes 4 consecutive
+// output pixels of one sample, reads their coordinates once, and writes
+// them for each of the sample's C image planes and its mask plane. Bound:
+// memory, as the warp (the taps of neighbouring pixels share cache lines).
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+resample_kernel(const float* __restrict__ img, const int* __restrict__ mask,
+                const float* __restrict__ sy, const float* __restrict__ sx,
+                float* __restrict__ out_img, int* __restrict__ out_mask,
+                int n, int c, int h, int w, int ho, int wo) {
+  const int plane = h * w, oplane = ho * wo;
+  const int p0 = blockIdx.x * TILE + threadIdx.x * PER_THREAD;
+  if (p0 >= oplane) return;
+  const int m = min(PER_THREAD, oplane - p0);
+  for (int s = blockIdx.y; s < n; s += gridDim.y) {
+    const size_t o = (size_t)s * oplane + p0;
+    ResamplePixel px[PER_THREAD];
+    if (VEC) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(sy + o));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(sx + o));
+      px[0] = resample_pixel(h, w, a.x, b.x);
+      px[1] = resample_pixel(h, w, a.y, b.y);
+      px[2] = resample_pixel(h, w, a.z, b.z);
+      px[3] = resample_pixel(h, w, a.w, b.w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k)
+        if (k < m) px[k] = resample_pixel(h, w, __ldg(sy + o + k),
+                                          __ldg(sx + o + k));
+    }
+    for (int ch = 0; ch < c; ++ch) {
+      const size_t plane_i = (size_t)s * c + ch;
+      const float* im = img + plane_i * plane;
+      float* out = out_img + plane_i * oplane + p0;
+      if (VEC) {
+        *reinterpret_cast<float4*>(out) = make_float4(
+            resample_value(im, px[0]), resample_value(im, px[1]),
+            resample_value(im, px[2]), resample_value(im, px[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < PER_THREAD; ++k)
+          if (k < m) out[k] = resample_value(im, px[k]);
+      }
+    }
+    const int* mk = mask + (size_t)s * plane;
+    int l[PER_THREAD];
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+      if (VEC || k < m) {
+        const int v = __ldg(mk + px[k].on);
+        l[k] = px[k].in_n ? v : 0;
+      }
+    }
+    if (VEC) {
+      *reinterpret_cast<int4*>(out_mask + o) = make_int4(l[0], l[1], l[2],
+                                                         l[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k)
+        if (k < m) out_mask[o + k] = l[k];
+    }
+  }
+}
+
 // The source offset inside a plane of pixel (yy, xx) under MODE, with the
 // index k clamped into the image: nothing is read out of bounds.
 template <int MODE>
@@ -227,6 +350,27 @@ extern "C" int gather_image_forward(const float* img, const int* idx,
     launch_gather<true>(grid, st, img, idx, out, n, h, w, mode);
   else
     launch_gather<false>(grid, st, img, idx, out, n, h, w, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// img: (n, c, h, w) f32; mask: (n, h, w) int32; sy, sx: (n, ho, wo) f32;
+// out_img: (n, c, ho, wo) f32; out_mask: (n, ho, wo) int32. All
+// contiguous, on the device; n, c, h, w, ho, wo > 0.
+extern "C" int resample_forward(const float* img, const int* mask,
+                                const float* sy, const float* sx,
+                                float* out_img, int* out_mask, int n, int c,
+                                int h, int w, int ho, int wo, void* stream) {
+  dim3 grid;
+  if ((long long)h * w > INT_MAX || !grid_for(n, ho, wo, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wo % PER_THREAD == 0 && aligned16(sy) && aligned16(sx)
+      && aligned16(out_img) && aligned16(out_mask))
+    resample_kernel<true><<<grid, THREADS, 0, st>>>(
+        img, mask, sy, sx, out_img, out_mask, n, c, h, w, ho, wo);
+  else
+    resample_kernel<false><<<grid, THREADS, 0, st>>>(
+        img, mask, sy, sx, out_img, out_mask, n, c, h, w, ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.warp import warp_image_label
+from ..ops.cuda.warp import resample, warp_image_label
 
 ELASTIC_ALPHA = 500.0
 ELASTIC_SIGMA = 20.0
@@ -68,37 +68,6 @@ def edge_ground_truth(labels: torch.Tensor,
     s = F.conv2d(fg.float(), disk.expand(c, 1, 5, 5), padding=2, groups=c)
     edge = ((s > 0.5) & ~(s > taps - 0.5)).any(dim=1, keepdim=True)
     return edge.permute(0, 2, 3, 1).float()
-
-
-def _sample_bilinear(imgs: torch.Tensor, sy: torch.Tensor,
-                     sx: torch.Tensor) -> torch.Tensor:
-    """imgs (N, H, W) f32; sy/sx (N, Ho, Wo) source coordinates; zero
-    outside. The JAX package's unpacked sampler (f32 taps)."""
-    n, h, w = imgs.shape
-    y0, x0 = torch.floor(sy), torch.floor(sx)
-    fy, fx = sy - y0, sx - x0
-    flat = imgs.reshape(n, h * w)
-
-    def tap(yi, xi):
-        inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
-        v = torch.gather(flat, 1, idx.reshape(n, -1)).reshape(yi.shape)
-        return torch.where(inside, v, torch.zeros_like(v))
-
-    return ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
-            + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
-
-
-def _sample_nearest(labels: torch.Tensor, sy: torch.Tensor,
-                    sx: torch.Tensor) -> torch.Tensor:
-    """Nearest tap (round half to even, as jnp.round), 0 outside."""
-    n, h, w = labels.shape
-    yi, xi = torch.round(sy), torch.round(sx)
-    inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-    idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
-    v = torch.gather(labels.reshape(n, h * w), 1,
-                     idx.reshape(n, -1)).reshape(yi.shape)
-    return torch.where(inside, v, torch.zeros_like(v))
 
 
 def coords_from_draws(flip_h, flip_v, angle, do_el, field_x, field_y,
@@ -174,8 +143,7 @@ def augment_with_coords(imgs: torch.Tensor, labels: torch.Tensor,
         img_w, lab_a = warp_image_label(imgs, labels, sy, sx)
     else:  # the JAX package's unpacked samplers (its packed warp holds
         # 2-bit labels): f32 taps, labels rounded half to even
-        img_w = _sample_bilinear(imgs.float(), sy, sx)
-        lab_a = _sample_nearest(labels, sy, sx).int()
+        img_w, lab_a = resample(imgs.float(), labels.int(), sy, sx)
 
     mn = img_w.amin(dim=(1, 2), keepdim=True)
     rng = img_w.amax(dim=(1, 2), keepdim=True) - mn

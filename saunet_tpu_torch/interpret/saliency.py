@@ -28,6 +28,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..models.blocks import set_act
 from ..utils.png import write_png
 
 
@@ -53,9 +54,7 @@ def guided_model(model: torch.nn.Module) -> torch.nn.Module:
     modules' `act` is `guided_relu` (the JAX `model.clone(act=...)`)."""
     shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
     clone = copy.deepcopy(model, memo=shared)
-    for m in clone.modules():
-        if hasattr(m, "act"):
-            m.act = guided_relu
+    set_act(clone, guided_relu)
     return clone
 
 

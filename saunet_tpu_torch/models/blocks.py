@@ -31,6 +31,7 @@ from torch import nn
 
 from ..parallel.collectives import all_reduce_sum
 from .norm import BatchNorm2d
+from .resnet import SameConv2d
 
 
 @contextlib.contextmanager
@@ -107,6 +108,14 @@ def mean_hw(x: torch.Tensor, space=None) -> torch.Tensor:
                                   dtype=torch.float32)])
     total = all_reduce_sum(local, space.group)
     return (total[:-1] / total[-1]).reshape(n, c, 1, 1).to(x.dtype)
+
+
+def set_act(model: nn.Module, act: Callable) -> None:
+    """Make `act` the `act` of every module of `model` that has one (the
+    JAX modules' `act` field, passed down to every submodule)."""
+    for m in model.modules():
+        if hasattr(m, "act"):
+            m.act = act
 
 
 class Conv2d(nn.Conv2d):
@@ -282,3 +291,102 @@ class DecoderBlock(nn.Module):
 
 def max_pool_2x2(x: torch.Tensor, space=None) -> torch.Tensor:
     return pool_2x2(x, F.max_pool2d, space)
+
+
+class SEBottleneck(nn.Module):
+    """SENet-154-style bottleneck, squeeze-and-excite before the residual
+    add (unused by SAUNet; inventory parity). 'SAME' convs
+    (resnet.SameConv2d), conv2 grouped and strided."""
+
+    def __init__(self, cin: int, planes: int, groups: int = 1,
+                 reduction: int = 16, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.act = F.relu
+        self.conv1 = SameConv2d(cin, planes * 2, 1)
+        self.bn1 = BatchNorm2d(planes * 2)
+        self.conv2 = SameConv2d(planes * 2, planes * 4, 3, stride, groups)
+        self.bn2 = BatchNorm2d(planes * 4)
+        self.conv3 = SameConv2d(planes * 4, planes * 4, 1)
+        self.bn3 = BatchNorm2d(planes * 4)
+        if downsample:
+            self.down_conv = SameConv2d(cin, planes * 4, 1, stride)
+            self.down_bn = BatchNorm2d(planes * 4)
+        self.se_module = SEModule(planes * 4, reduction)
+
+    def forward(self, x):
+        out = self.act(self.bn1(self.conv1(x)))
+        out = self.act(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = self.down_bn(self.down_conv(x)) \
+            if hasattr(self, "down_conv") else x
+        return self.act(self.se_module(out) + residual)
+
+
+class SEResNetBottleneck(nn.Module):
+    """Caffe-style SE-ResNet bottleneck, the stride in conv1 (unused by
+    SAUNet; inventory parity)."""
+
+    def __init__(self, cin: int, planes: int, groups: int = 1,
+                 reduction: int = 16, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.act = F.relu
+        self.conv1 = SameConv2d(cin, planes, 1, stride)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = SameConv2d(planes, planes, 3, 1, groups)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = SameConv2d(planes, planes * 4, 1)
+        self.bn3 = BatchNorm2d(planes * 4)
+        if downsample:
+            self.down_conv = SameConv2d(cin, planes * 4, 1, stride)
+            self.down_bn = BatchNorm2d(planes * 4)
+        self.se_module = SEModule(planes * 4, reduction)
+
+    def forward(self, x):
+        out = self.act(self.bn1(self.conv1(x)))
+        out = self.act(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = self.down_bn(self.down_conv(x)) \
+            if hasattr(self, "down_conv") else x
+        return self.act(self.se_module(out) + residual)
+
+
+def gaussian_kernel7(sigma: float = 3.0) -> torch.Tensor:
+    """The normalised 7x7 Gaussian (f64 math, f32 result)."""
+    ax = torch.arange(7, dtype=torch.float64)
+    g = torch.exp(-((ax - 3.0) ** 2) / (2 * sigma ** 2))
+    k = torch.outer(g, g)
+    return (k / k.sum()).float()
+
+
+class HighFrequencyGatedSpatialConv(nn.Module):
+    """Difference-of-Gaussian shape-stream gate (unused by SAUNet;
+    inventory parity): a frozen 7x7, sigma 3 depthwise Gaussian blur
+    ('SAME', zero padding) leaves the high frequencies (x - blur(x)),
+    which a 1x1 conv (`cw`) mixes with x; they are gated as in
+    GatedSpatialConv by the concat of x and the `gate_channels` gating
+    features. Returns the (N, features, H, W) output."""
+
+    def __init__(self, cin: int, features: int, gate_channels: int = 1):
+        super().__init__()
+        self.act = F.relu
+        cat = cin + gate_channels
+        self.register_buffer("blur", gaussian_kernel7().expand(
+            cin, 1, 7, 7).contiguous(), persistent=False)
+        self.cw = Conv2d(2 * cin, cin)
+        self.gate_bn1 = BatchNorm2d(cat)
+        self.gate_conv1 = Conv2d(cat, cat)
+        self.gate_conv2 = Conv2d(cat, 1)
+        self.gate_bn2 = BatchNorm2d(1)
+        self.conv = Conv2d(cin, features, bias=False)
+
+    def forward(self, input_features, gating_features):
+        x = input_features
+        smooth = F.conv2d(x, self.blur.to(x.dtype), padding=3,
+                          groups=x.shape[1])
+        dog = self.cw(torch.cat([x - smooth, x], dim=1))
+        cat = torch.cat([x, gating_features], dim=1)
+        g = self.act(self.gate_conv1(self.gate_bn1(cat)))
+        alpha = torch.sigmoid(self.gate_bn2(self.gate_conv2(g)))
+        return self.conv(dog * (alpha + 1.0))

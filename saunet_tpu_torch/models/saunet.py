@@ -17,9 +17,10 @@ design of the JAX package's banded Canny (K2), whose result is exact.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.canny import canny_edges_cuda
@@ -34,6 +35,7 @@ from .blocks import (
     GatedSpatialConv,
     ResBasicBlock,
     max_pool_2x2,
+    set_act,
 )
 from .densenet import DenseNetEncoder
 
@@ -61,10 +63,23 @@ def canny_rows(gray: torch.Tensor, space, edges) -> torch.Tensor:
     return out[:, start:start + hi - lo]
 
 
+#: `edge_kernel` values: the Canny each one runs (the JAX package's 'xla'
+#: is the plain version, its 'pallas' the kernel)
+EDGE_KERNELS = {"auto": "wrapper", "pallas": "kernel", "xla": "plain",
+                "plain": "plain"}
+STREAM_IMPLS = ("xla", "packed")
+
+
 class SAUNet(nn.Module):
-    """`edge_kernel`: "auto" runs Canny through its kernel wrapper (the
-    CUDA kernel on a GPU, the plain version on the CPU); "plain" always
-    runs the plain version. `remat` and `encoder_concat` are the encoder's
+    """The JAX SAUNet's constructor surface:
+
+    `edge_kernel`: "auto" runs Canny through its kernel wrapper (the CUDA
+    kernel on a GPU, the plain version on the CPU); "xla" and "plain" always
+    run the plain version; "pallas" always runs the kernel, which raises
+    for a tensor on the CPU. `stream_impl` "xla" or "packed": one math, the
+    packed layout being a TPU memory layout. `act` (default ReLU) becomes
+    the `act` of every module that holds one of the JAX modules' `act`
+    sites. `remat` and `encoder_concat` are the encoder's
     (models/densenet.py: rematerialised dense blocks; their train layout,
     'chain', 'buffer' or 'fused')."""
 
@@ -73,13 +88,18 @@ class SAUNet(nn.Module):
     def __init__(self, num_classes: int = NUM_CLASSES,
                  num_filters: int = NUM_FILTERS,
                  dtype: torch.dtype = torch.float32,
+                 act: Callable = F.relu,
                  canny_low: float = 10.0, canny_high: float = 100.0,
                  edge_kernel: str = "auto", remat: bool = False,
-                 encoder_concat: str = "chain"):
+                 encoder_concat: str = "chain", stream_impl: str = "xla"):
         super().__init__()
-        if edge_kernel not in ("auto", "plain"):
-            raise ValueError(f"edge_kernel must be 'auto' or 'plain', got "
-                             f"{edge_kernel!r}")
+        if edge_kernel not in EDGE_KERNELS:
+            raise ValueError(f"edge_kernel must be one of "
+                             f"{sorted(EDGE_KERNELS)}, got {edge_kernel!r}")
+        if stream_impl not in STREAM_IMPLS:
+            raise ValueError(f"stream_impl must be 'xla' or 'packed', "
+                             f"got {stream_impl!r}")
+        self.stream_impl = stream_impl
         self.num_classes = num_classes
         self.num_filters = num_filters
         self.dtype = dtype
@@ -118,13 +138,18 @@ class SAUNet(nn.Module):
         self.dec1 = DecoderBlock(64, 48, nf)
         self.dec0 = ConvBNRelu(2 * nf, nf, 3)
         self.final = Conv2d(nf, num_classes)
+        self.act = act
+        set_act(self, act)
 
     def _canny(self, gray: torch.Tensor) -> torch.Tensor:
         """NHW1 gray -> NHW1 edges. The input is detached: the kernel has
         no backward, and the reference's cv2 Canny is gradient-opaque."""
         gray = gray.detach()
-        edges = canny_edges if self.edge_kernel == "plain" \
-            else canny_edges_cuda
+        route = EDGE_KERNELS[self.edge_kernel]
+        if route == "kernel" and not gray.is_cuda:
+            raise ValueError(f"edge_kernel 'pallas' runs the Canny kernel, "
+                             f"which has no version for {gray.device}")
+        edges = canny_edges if route == "plain" else canny_edges_cuda
         if self.space is None:
             return edges(gray, self.canny_low, self.canny_high)
         return canny_rows(gray, self.space, lambda band: edges(

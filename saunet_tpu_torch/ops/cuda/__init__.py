@@ -14,15 +14,18 @@ from .shape_stream import (
 from .warp import (
     gather_image,
     gather_image_plain,
+    resample,
+    resample_plain,
     warp_image_label,
     warp_image_label_plain,
 )
 
-KERNELS = (canny_edges_cuda, dense_block, gather_image, shape_stream_fused,
-           warp_image_label)
+KERNELS = (canny_edges_cuda, dense_block, gather_image, resample,
+           shape_stream_fused, warp_image_label)
 
 __all__ = ["KERNELS", "canny_edges_cuda", "dense_block",
            "dense_block_plain", "fold_dense_block_params",
            "fold_shape_stream_params", "gather_image", "gather_image_plain",
-           "shape_stream_fused", "shape_stream_plain", "warp_image_label",
+           "resample", "resample_plain", "shape_stream_fused",
+           "shape_stream_plain", "warp_image_label",
            "warp_image_label_plain"]

@@ -136,6 +136,9 @@ def load(name: str) -> ctypes.CDLL:
         lib.gather_image_forward.restype = i
         lib.warp_forward.argtypes = [p, p, p, p, p, p, i, i, i, p]
         lib.warp_forward.restype = i
+        lib.resample_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                         i, p]
+        lib.resample_forward.restype = i
     return lib
 
 

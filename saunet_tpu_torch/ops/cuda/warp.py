@@ -10,6 +10,12 @@ tensor, or raises, and counts its launches.
 `warp_image_label` computes the warp directly, four output pixels a
 thread, instead of the TPU's packed single gather; the numerics are the
 reference's (bf16 taps, f32 combine, zero fill; see csrc/warp.cu).
+
+`resample` is the paired transforms' resample
+(saunet_tpu/data/transforms.py::_resample): the same per-image gather onto
+a coordinate grid of another shape, with the unpacked samplers' numerics
+(f32 taps, the mask rounded half to even), whose plain versions are
+`sample_bilinear_plain` and `sample_nearest_plain`.
 """
 from __future__ import annotations
 
@@ -143,3 +149,100 @@ def warp_image_label(img: torch.Tensor, label: torch.Tensor,
 
 
 warp_image_label.launches = 0
+
+
+def sample_bilinear_plain(imgs: torch.Tensor, sy: torch.Tensor,
+                          sx: torch.Tensor) -> torch.Tensor:
+    """imgs (N, H, W) f32; sy/sx (N, Ho, Wo) source coordinates; zero
+    outside. The JAX package's unpacked sampler (f32 taps)."""
+    n, h, w = imgs.shape
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    fy, fx = sy - y0, sx - x0
+    flat = imgs.reshape(n, h * w)
+
+    def tap(yi, xi):
+        inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+        v = torch.gather(flat, 1, idx.reshape(n, -1)).reshape(yi.shape)
+        return torch.where(inside, v, torch.zeros_like(v))
+
+    return ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
+            + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
+
+
+def sample_nearest_plain(labels: torch.Tensor, sy: torch.Tensor,
+                         sx: torch.Tensor) -> torch.Tensor:
+    """Nearest tap (round half to even, as jnp.round), 0 outside."""
+    n, h, w = labels.shape
+    yi, xi = torch.round(sy), torch.round(sx)
+    inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+    idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+    v = torch.gather(labels.reshape(n, h * w), 1,
+                     idx.reshape(n, -1)).reshape(yi.shape)
+    return torch.where(inside, v, torch.zeros_like(v))
+
+
+def resample_plain(img: torch.Tensor, mask: torch.Tensor, sy: torch.Tensor,
+                   sx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The resample in torch ops: each channel of an (N, H, W, C) image
+    sampled as its own (N, H, W) image."""
+    if img.dim() == 4:
+        out = torch.stack([sample_bilinear_plain(img[..., c], sy, sx)
+                           for c in range(img.shape[-1])], dim=-1)
+    else:
+        out = sample_bilinear_plain(img, sy, sx)
+    return out, sample_nearest_plain(mask, sy, sx)
+
+
+def resample(img: torch.Tensor, mask: torch.Tensor, sy: torch.Tensor,
+             sx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """img (N, H, W) or (N, H, W, C) f32, mask (N, H, W) int32, sy/sx
+    (N, Ho, Wo) f32 source coordinates -> (image (N, Ho, Wo[, C]) f32,
+    mask (N, Ho, Wo) int32): bilinear image, nearest mask, zero fill. An
+    image with channels runs as N * C planes under one launch, each
+    sample's coordinates read once for its C planes and its mask."""
+    if img.device.type == "cpu":
+        return resample_plain(img, mask, sy, sx)
+    if img.dim() not in (3, 4):
+        raise ValueError(f"resample kernel: image must be (N, H, W) or "
+                         f"(N, H, W, C), got {tuple(img.shape)}")
+    planes = img.permute(0, 3, 1, 2) if img.dim() == 4 else img[:, None]
+    n, c, h, w = planes.shape
+    if tuple(mask.shape) != (n, h, w):
+        raise ValueError(f"resample kernel: mask {tuple(mask.shape)} does "
+                         f"not match the image {tuple(img.shape)}")
+    _, ho, wo = _check_cuda("resample kernel", sy=sy, sx=sx)
+    if sy.shape[0] != n:
+        raise ValueError(f"resample kernel: {sy.shape[0]} coordinate "
+                         f"grids for {n} samples")
+    for name, t in (("img", img), ("mask", mask)):
+        if t.device != sy.device:
+            raise ValueError(f"resample kernel: {name} on {t.device}, "
+                             f"coordinates on {sy.device}")
+    for name, t in (("img", img), ("sy", sy), ("sx", sx)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"resample kernel: {name} must be f32, got "
+                             f"{t.dtype}")
+    if mask.dtype != torch.int32:
+        raise ValueError(f"resample kernel: mask must be int32, got "
+                         f"{mask.dtype}")
+    if not planes.numel():
+        raise ValueError(f"resample kernel: empty image "
+                         f"{tuple(img.shape)}")
+    planes, mask = planes.contiguous(), mask.contiguous()
+    out = torch.empty((n, c, ho, wo), dtype=torch.float32, device=sy.device)
+    out_mask = torch.empty((n, ho, wo), dtype=torch.int32, device=sy.device)
+    if out_mask.numel():
+        lib = build.load("warp")
+        with torch.cuda.device(sy.device):
+            build.check(lib.resample_forward(
+                planes.data_ptr(), mask.data_ptr(), sy.data_ptr(),
+                sx.data_ptr(), out.data_ptr(), out_mask.data_ptr(), n, c, h,
+                w, ho, wo, torch.cuda.current_stream().cuda_stream),
+                "resample kernel")
+        resample.launches += 1
+    return (out.permute(0, 2, 3, 1).contiguous() if img.dim() == 4
+            else out[:, 0]), out_mask
+
+
+resample.launches = 0

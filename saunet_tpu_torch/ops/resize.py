@@ -1,6 +1,7 @@
 """Bilinear resize with align_corners=True (counterpart of
 saunet_tpu/ops/resize.py, which builds the same operator from
-interpolation matrices and bit-matches this one in f32).
+interpolation matrices and bit-matches this one in f32), and the
+nearest-neighbour resize of label maps.
 
 On the 'space' axis (`space`, a parallel.mesh.SpaceShard) the source row
 of output row i is i * (h - 1) / (H - 1) in global rows, which does not
@@ -56,3 +57,22 @@ def resize_bilinear(x: torch.Tensor, out_hw, space=None) -> torch.Tensor:
     out = (window.index_select(2, (i0 - a).to(x.device)) * (1.0 - w1)
            + window.index_select(2, (i1 - a).to(x.device)) * w1)
     return out.to(x.dtype)
+
+
+def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest-neighbour resize of a label map, NHWC, HWC or HW (the JAX
+    package's layouts): output row i takes source row min(i * h // H,
+    h - 1), and columns likewise."""
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    ndim = x.dim()
+    if ndim == 2:
+        x = x[None, :, :, None]
+    elif ndim == 3:
+        x = x[None]
+    h, w = x.shape[1:3]
+    rows = torch.clamp(torch.arange(out_h, device=x.device) * h // out_h,
+                       max=h - 1)
+    cols = torch.clamp(torch.arange(out_w, device=x.device) * w // out_w,
+                       max=w - 1)
+    out = x[:, rows][:, :, cols]
+    return out[0, ..., 0] if ndim == 2 else out[0] if ndim == 3 else out

@@ -5,7 +5,9 @@ Layouts are the JAX package's: logits (N, H, W, C), edge probabilities
 (N, H, W, 1), labels (N, H, W) int. All reductions run in f32 whatever the
 model's compute dtype. `sample_mask` (N,) {0, 1} removes padded samples
 from every reduction. The lane-packed `dual_loss_packed` is a TPU layout of
-the same math and is not ported.
+the same math and is not ported. The reference's dormant losses
+(`image_based_cross_entropy`, `label_smooth_softmax_ce`,
+`edge_attention_loss`) are here for inventory parity; no step uses them.
 
 `group` (a process group, or None) makes each loss the loss of the global
 batch whose rows the ranks of `group` hold: every sum in a ratio or a mean
@@ -107,3 +109,72 @@ def dual_loss(seg_logits: torch.Tensor, edge_probs: torch.Tensor,
                     group=group)
     total = dice + ce + edge
     return total, {"loss": total, "ce": ce, "dice": dice, "edge": edge}
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+
+
+def image_based_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                              upper_bound: float = 1.0, norm: bool = False,
+                              batch_weights: bool = False) -> torch.Tensor:
+    """Histogram-weighted CE (the reference's dormant
+    ImageBasedCrossEntropyLoss2d): per-image (or, with `batch_weights`,
+    per-batch) class frequencies reweight the NLL, rare classes counting
+    more; per-image weighted means of the NLL, summed over the images."""
+    nll = _nll(logits, labels)
+    one_hot = torch.nn.functional.one_hot(labels.long(),
+                                          logits.shape[-1]).float()
+    dims = (0, 1, 2) if batch_weights else (1, 2)
+    hist = one_hot.sum(dim=dims)
+    hist = hist / hist.sum(dim=-1, keepdim=True)
+    if norm:
+        w = torch.where(hist > 0, upper_bound / hist.clamp(min=1e-12),
+                        torch.zeros_like(hist)) + 1.0
+    else:
+        w = torch.where(hist > 0, upper_bound * (1.0 - hist),
+                        torch.zeros_like(hist)) + 1.0
+    if batch_weights:
+        pix_w = w[labels.long()]
+    else:
+        pix_w = torch.gather(w[:, None, None, :].expand(*labels.shape, -1),
+                             -1, labels.long()[..., None])[..., 0]
+    per_img = ((pix_w * nll).sum(dim=(1, 2))
+               / pix_w.sum(dim=(1, 2)).clamp(min=1e-12))
+    return per_img.sum()
+
+
+def label_smooth_softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
+                            lb_pos: float = 0.9, lb_neg: float = 0.005,
+                            reduction: str = "mean",
+                            lb_ignore: int = -1) -> torch.Tensor:
+    """Label-smoothed softmax CE (the reference's dormant
+    LabelSmoothSoftmaxCE): targets lb_pos on the label and lb_neg
+    elsewhere; pixels labelled `lb_ignore` count nothing. `reduction`
+    'mean' (over the counted pixels), 'sum' or anything else (per pixel)."""
+    logs = torch.log_softmax(logits.float(), dim=-1)
+    ignore = labels == lb_ignore
+    safe = torch.where(ignore, torch.zeros_like(labels), labels).long()
+    one_hot = torch.nn.functional.one_hot(safe, logits.shape[-1]).float()
+    smoothed = lb_pos * one_hot + lb_neg * (1.0 - one_hot)
+    loss = -(logs * smoothed).sum(dim=-1)
+    loss = torch.where(ignore, torch.zeros_like(loss), loss)
+    if reduction == "mean":
+        return loss.sum() / (~ignore).sum().clamp(min=1)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def edge_attention_loss(seg_logits: torch.Tensor, seg_targets: torch.Tensor,
+                        edge_probs: torch.Tensor, threshold: float = 0.8,
+                        class_weights=DEFAULT_CLASS_WEIGHTS) -> torch.Tensor:
+    """Class-weighted CE over the pixels whose predicted edge probability
+    (the largest over the last axis) exceeds `threshold`: the reference's
+    dormant edge-attention term."""
+    nll = _nll(seg_logits, seg_targets)
+    w = torch.as_tensor(class_weights, dtype=torch.float32,
+                        device=seg_logits.device)[seg_targets.long()]
+    mask = (edge_probs.amax(dim=-1) > threshold).float()
+    return (w * nll * mask).sum() / (w * mask).sum().clamp(min=1.0)

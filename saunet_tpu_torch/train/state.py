@@ -25,6 +25,7 @@ import warnings
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models.blocks import partition_space
@@ -194,9 +195,11 @@ def make_train_step(model: nn.Module, tx: Callable, num_class: int = 4,
 
 def use_fused_encoder(model: nn.Module, images: torch.Tensor) -> bool:
     """The dense-block kernel encoder serves a bf16 model on a CUDA tensor
-    (counterpart of `_use_fused_encoder`: the kernel takes bf16 only); any
-    other model or device runs the plain forward."""
-    return images.is_cuda and getattr(model, "dtype", None) == torch.bfloat16
+    (counterpart of `_use_fused_encoder`: the kernel takes bf16 only) whose
+    `act` is ReLU, the kernel's; any other model or device runs the plain
+    forward."""
+    return (images.is_cuda and getattr(model, "dtype", None) == torch.bfloat16
+            and getattr(model, "act", F.relu) is F.relu)
 
 
 def _forward_eval(model, folded, images: torch.Tensor, fused: bool,

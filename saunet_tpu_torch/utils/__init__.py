@@ -1,5 +1,18 @@
-from .config import BN_EPS, BN_MOMENTUM, NUM_CLASSES, NUM_FILTERS
+from .config import (
+    BN_EPS,
+    BN_MOMENTUM,
+    NUM_CLASSES,
+    NUM_FILTERS,
+    AttrDict,
+    assert_and_infer_cfg,
+    cfg,
+    default_config,
+)
 from .meters import AverageMeter
+from .misc import as_numpy, color_encode
+from .profiling import StepTimer, annotate, trace
 
-__all__ = ["AverageMeter", "BN_EPS", "BN_MOMENTUM", "NUM_CLASSES",
-           "NUM_FILTERS"]
+__all__ = ["AttrDict", "AverageMeter", "BN_EPS", "BN_MOMENTUM",
+           "NUM_CLASSES", "NUM_FILTERS", "StepTimer", "annotate",
+           "as_numpy", "assert_and_infer_cfg", "cfg", "color_encode",
+           "default_config", "trace"]

@@ -88,7 +88,7 @@ def test_warp_plain_matches_packed_jax_warp(jx):
 
 def test_unpacked_samplers_match_jax(jx):
     """num_classes > 4 takes the unpacked samplers (f32 taps, labels
-    rounded half to even)."""
+    rounded half to even): the resample kernel's wrapper."""
     img, lab, sy, sx = _warp_inputs(2, classes=6)
     jsy, jsx = jx.jnp.asarray(sy), jx.jnp.asarray(sx)
     ri = np.asarray(jx.aug._sample_bilinear_batched(jx.jnp.asarray(img),
@@ -96,11 +96,12 @@ def test_unpacked_samplers_match_jax(jx):
     rl = np.asarray(jx.aug._sample_nearest_batched(jx.jnp.asarray(lab),
                                                    jsy, jsx))
     t = [torch.from_numpy(a) for a in (img, lab, sy, sx)]
-    np.testing.assert_allclose(
-        augment._sample_bilinear(t[0], t[2], t[3]).numpy(), ri, rtol=0,
-        atol=1e-5 * np.abs(ri).max())
-    np.testing.assert_array_equal(
-        augment._sample_nearest(t[1], t[2], t[3]).numpy(), rl)
+    before = warp.resample.launches
+    pi, pl = warp.resample(t[0], t[1].int(), t[2], t[3])
+    assert warp.resample.launches == before  # plain on the CPU
+    np.testing.assert_allclose(pi.numpy(), ri, rtol=0,
+                               atol=1e-5 * np.abs(ri).max())
+    np.testing.assert_array_equal(pl.numpy(), rl)
 
 
 def test_edge_ground_truth_matches_jax(jx):
