@@ -45,6 +45,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      Then `make_infer_step` serves 8 slices at 224^2 from an f32 copy of
      the model: the plain forward, 0 dense-block launches, preds agreeing
      with the model's own forward on >= 0.99 of pixels.
+  5b. pretrained-weights ingestion: phase 4's seeded, calibrated encoder
+     saved as torchvision's `densenet121-<sha8>.pth` (the `features.`
+     prefix, legacy `norm.1` names, a classifier; `<sha8>` its own digest
+     prefix) through `saunet_tpu_torch.cli.ingest_pretrained` on the card:
+     checksum, .npz, every encoder tensor grafted onto a fresh SAUNet, the
+     manifest. The archive loaded into a fresh bf16 model as `cli.train
+     --pretrained` loads it: every encoder tensor and folded dense-block
+     operand equal to phase 4's. Its infer step on phase 4's slices,
+     counters zeroed just before and read just after: 1 Canny and 4 dense
+     blocks, each call held against its plain version (K1 exact, K3 within
+     0.05*max|ref| and a median under a tenth of that).
   6. warp kernel (K5) vs plain on the train path's tensors, 64 slices at
      224^2: `gather_image` in its three modes, exact; `warp_image_label` on
      coordinates from the port's own augmentation draws, image within
@@ -797,6 +808,99 @@ def serve_f32(model, device):
     require(bool(torch.isfinite(probs).all()) and int(preds.min()) >= 0
             and int(preds.max()) < 4, "f32 serving: bad probs or labels")
     require(agree >= 0.99, "f32 serving differs from the model's forward")
+
+
+def phase_ingest(model, state, images, device):
+    """Pretrained-weights ingestion: the main path's seeded, calibrated
+    encoder saved as torchvision's `densenet121-<sha8>.pth` (`<sha8>` its
+    own digest prefix), taken through `cli.ingest_pretrained` on the card
+    (checksum, .npz, graft onto a fresh SAUNet, manifest); its archive
+    loaded into a fresh bf16 model as `cli.train --pretrained` loads it,
+    every encoder tensor and every folded dense-block operand equal to the
+    source's; then that model's infer step on the main path's slices, counters
+    zeroed just before and read just after (1 Canny, 4 dense blocks), each
+    K1 and K3 call recorded and held against its plain version: K1 exact,
+    K3 within 0.05*max|ref| with the median under a tenth of that."""
+    import hashlib
+
+    import torch
+
+    from saunet_tpu_torch.cli import ingest_pretrained
+    from saunet_tpu_torch.models import build_unet
+    from saunet_tpu_torch.models.densenet import (
+        load_pretrained_encoder,
+        torchvision_state_dict,
+    )
+    from saunet_tpu_torch.parallel import parity
+    from saunet_tpu_torch.train import InferState, make_infer_step
+
+    want = {k: v for k, v in model.encoder.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp_pth = os.path.join(tmp, "densenet121.pth")
+        torch.save(torchvision_state_dict(model.encoder), tmp_pth)
+        with open(tmp_pth, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        src = os.path.join(tmp, f"densenet121-{digest[:8]}.pth")
+        os.rename(tmp_pth, src)
+        out = os.path.join(tmp, "weights", "densenet121.npz")
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            code = ingest_pretrained.main([src, "--out", out])
+        seconds = time.perf_counter() - t0
+        for line in printed.getvalue().splitlines():
+            log(f"ingest_pretrained: {line}")
+        require(code == 0, f"ingest_pretrained exited {code}")
+        require(f"(grafted {len(want)} encoder tensors)" in printed.getvalue()
+                and f"--pretrained {out}" in printed.getvalue(),
+                f"ingestion did not graft the {len(want)} encoder tensors")
+        with open(out + ".sha256") as f:
+            manifest = f.read()
+        require(manifest == f"{digest}  {os.path.basename(src)}\n",
+                f"bad manifest {manifest!r}")
+        # the archive the CLI wrote, as `cli.train --pretrained` loads it
+        g_model = load_pretrained_encoder(
+            out, build_unet(dtype="bfloat16")).to(device).eval()
+    got = g_model.encoder.state_dict()
+    require(all(torch.equal(got[k], v) for k, v in want.items()),
+            "a grafted encoder tensor differs from the source's")
+    g_state = InferState(g_model, device)
+    require(all(torch.equal(a[k], b[k]) for a, b in
+                zip(g_state.folded, state.folded) for k in a),
+            "the grafted model's dense-block operands differ")
+    step = make_infer_step(g_model, with_probs=True)
+    with parity.recording_kernel_calls() as seen:
+        _zero_counts()
+        probs, preds, _ = step(g_state, images)
+        torch.cuda.synchronize()
+        launches = _counts()
+    log(f"ingested model's infer launches: {launches}")
+    require(launches == {"canny": 1, "dense_block": 4, "warp": 0,
+                         "gather": 0, "shape_stream": 0, "resample": 0},
+            f"the ingested model's infer step did not run each kernel as "
+            f"expected: {launches}")
+    require(preds.shape == (BATCH, SIZE, SIZE)
+            and bool(torch.isfinite(probs).all())
+            and int(preds.min()) >= 0 and int(preds.max()) < 4,
+            "the ingested model's infer step: bad probs or labels")
+    checked = parity.kernel_parity(seen)
+    flips = sum(c["flips"] for c in checked["canny"])
+    k3 = checked["dense_block"]
+    require(len(checked["canny"]) == 1 and flips == 0,
+            f"K1 on the ingested model: {checked['canny']}")
+    require(len(k3) == 4 and all(
+        c["max_abs_err"] <= 0.05 * c["scale"]
+        and c["median_abs_err"] < 0.005 * c["scale"] for c in k3),
+        f"K3 on the ingested model disagrees with its plain version: {k3}")
+    worst = max(c["max_abs_err"] / (0.05 * c["scale"]) for c in k3)
+    log(f"ingestion: {len(want)} encoder tensors grafted, CLI "
+        f"{seconds:.3f} s; infer step K1 flips {flips}, K3 worst "
+        f"{worst:.4f} of tolerance ({k3})")
+    del g_model, g_state
+    return launches, {"cli_seconds": seconds, "tensors": len(want),
+                      "k1_flips": flips, "k3_max_err_over_tol": worst,
+                      "k3_max_abs_err": max(c["max_abs_err"] for c in k3)}
 
 
 def phase_warp(device):
@@ -2643,6 +2747,7 @@ def main() -> int:
     infer_launches, rates = phase_main_path(model, state, images)
     k4_launches, k4 = phase_shape_stream(model, state, images)
     ms_per_slice = phase_serving(model, device)
+    ingest_launches, ingest = phase_ingest(model, state, images, device)
     del model, state, images
     torch.cuda.empty_cache()
     warp = phase_warp(device)
@@ -2667,6 +2772,7 @@ def main() -> int:
     require("jax" not in sys.modules, "the port imported jax")
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
+               "ingest": ingest_launches,
                "transforms": transform_launches,
                "train_step": train_launches,
                "trajectory": trajectory_launches, "train_cli": cli_launches,
@@ -2737,7 +2843,8 @@ def main() -> int:
         k: k4[k] for k in ("route_ms", "route_slices_per_s", "step_ms",
                            "step_slices_per_s", "route_argmax_agreement",
                            "inputs_ms")},
-        "serving_ms_per_slice": ms_per_slice, "train": train,
+        "serving_ms_per_slice": ms_per_slice, "ingest": ingest,
+        "train": train,
         "transforms": {k: transforms[k] for k in ("shapes", "mismatches")},
         "trajectory": trajectory,
         "train_cli": train_cli, "layouts": layouts, "saliency": saliency,

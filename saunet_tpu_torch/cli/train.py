@@ -87,9 +87,9 @@ def parse_args(argv=None):
                    help="checkpoint to warm-start weights from (.pt, or "
                         "the JAX package's .msgpack)")
     p.add_argument("--pretrained", default="",
-                   help="torchvision densenet121 state_dict (.pth, or .npz "
-                        "from tools/convert_torchvision.py) to load into the "
-                        "encoder")
+                   help="torchvision densenet121 state_dict (.pth, or the "
+                        ".npz that saunet_tpu_torch.cli.ingest_pretrained "
+                        "writes) to load into the encoder")
     # paths
     p.add_argument("--data-root", dest="data_root", type=str,
                    default=os.getenv("DATA_ROOT", ""))

@@ -48,11 +48,11 @@ def read_series_file(path: str) -> List[Tuple[int, int]]:
     return out
 
 
-def scan_training_dir(root: str) -> List[Tuple[int, int]]:
-    """Discover (patient, frame) pairs by scanning patientXXX dirs for
-    frame ground-truth files."""
+def _scan_patient_dirs(root: str, pattern: str) -> List[Tuple[int, int]]:
+    """(patient, frame) pairs of the files in root's patientXXX dirs whose
+    names match `pattern` (its groups: patient, frame), in sorted order."""
     out = []
-    pat = re.compile(r"patient(\d+)_frame(\d+)_gt\.nii(\.gz)?$")
+    pat = re.compile(pattern)
     for d in sorted(os.listdir(root)):
         pd = os.path.join(root, d)
         if not (d.startswith("patient") and os.path.isdir(pd)):
@@ -62,6 +62,27 @@ def scan_training_dir(root: str) -> List[Tuple[int, int]]:
             if m:
                 out.append((int(m.group(1)), int(m.group(2))))
     return out
+
+
+def scan_training_dir(root: str) -> List[Tuple[int, int]]:
+    """Discover (patient, frame) pairs by scanning patientXXX dirs for
+    frame ground-truth files."""
+    return _scan_patient_dirs(root,
+                              r"patient(\d+)_frame(\d+)_gt\.nii(\.gz)?$")
+
+
+def testing_dir(root: str) -> str:
+    """The test volumes' directory of an ACDC root: `testing/testing` as
+    the archive unpacks, else `testing`."""
+    nested = os.path.join(root, "testing", "testing")
+    return nested if os.path.isdir(nested) else os.path.join(root, "testing")
+
+
+def scan_testing_dir(test_dir: str) -> List[Tuple[int, int]]:
+    """Discover (patient, frame) pairs by scanning patientXXX dirs for
+    frame images (test volumes have no ground truth)."""
+    return _scan_patient_dirs(test_dir,
+                              r"patient(\d+)_frame(\d+)\.nii(\.gz)?$")
 
 
 def kfold_split(series: Sequence[Tuple[int, int]], split: str, k: int = 5,
@@ -243,29 +264,14 @@ class ACDCTestDataset:
         self.root = root
         self.target_size = target_size
         self.spacing = spacing
-        self.test_dir = os.path.join(root, "testing", "testing")
-        if not os.path.isdir(self.test_dir):
-            self.test_dir = os.path.join(root, "testing")
+        self.test_dir = testing_dir(root)
 
         if series_file and os.path.exists(series_file):
             self.series = read_series_file(series_file)
         else:
-            self.series = self._scan()
+            self.series = scan_testing_dir(self.test_dir)
         if not self.series:
             raise FileNotFoundError(f"No test volumes under {self.test_dir}")
-
-    def _scan(self) -> List[Tuple[int, int]]:
-        out = []
-        pat = re.compile(r"patient(\d+)_frame(\d+)\.nii(\.gz)?$")
-        for d in sorted(os.listdir(self.test_dir)):
-            pd = os.path.join(self.test_dir, d)
-            if not (d.startswith("patient") and os.path.isdir(pd)):
-                continue
-            for fn in sorted(os.listdir(pd)):
-                m = pat.match(fn)
-                if m:
-                    out.append((int(m.group(1)), int(m.group(2))))
-        return out
 
     def __len__(self):
         return len(self.series)

@@ -248,8 +248,9 @@ class DenseNetEncoder(nn.Module):
 
 def load_pretrained_encoder(path: str, model: nn.Module) -> nn.Module:
     """Load torchvision densenet121 ImageNet weights (`features.*` of a
-    torch .pth state_dict, or the .npz of tools/convert_torchvision.py)
-    into `model.encoder`; returns `model`.
+    torch .pth state_dict, or the .npz that
+    `saunet_tpu_torch.cli.ingest_pretrained` writes) into `model.encoder`;
+    returns `model`.
 
     Legacy `norm.1`-style names are re-joined; the classifier is ignored.
     Every encoder entry must be present with its shape (BN batch counters
@@ -274,3 +275,21 @@ def load_pretrained_encoder(path: str, model: nn.Module) -> nn.Module:
             sd.setdefault(k, v)
     encoder.load_state_dict(sd, strict=True)
     return model
+
+
+def torchvision_state_dict(encoder: nn.Module) -> dict:
+    """`encoder`'s weights, on the CPU, under the names of torchvision's
+    densenet121 hub file (`densenet121-a639ec97.pth`), the names that
+    `load_pretrained_encoder` maps back: the `features.` prefix, the dense
+    layers' legacy `norm.1`-style names, no BatchNorm batch counters, and
+    the file's 1000-way classifier (zeros), which the graft ignores."""
+    sd = {}
+    for k, v in encoder.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if ".denselayer" in k:
+            k = re.sub(r"\.(norm|conv)([12])\.", r".\1.\2.", k)
+        sd["features." + k] = v.detach().cpu().clone()
+    sd["classifier.weight"] = torch.zeros(1000, encoder.norm5.num_features)
+    sd["classifier.bias"] = torch.zeros(1000)
+    return sd

@@ -15,7 +15,7 @@ import torch
 
 from saunet_tpu_torch.data import augment
 from saunet_tpu_torch.ops.cuda import warp
-from torch_port_util import cuda_device  # noqa: F401  (fixture)
+from torch_port_util import cuda_device, one_thread  # noqa: F401  (fixtures)
 
 
 @pytest.fixture(scope="module")

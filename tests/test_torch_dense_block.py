@@ -27,7 +27,11 @@ from saunet_tpu_torch.ops.cuda import (
     fold_dense_block_params,
 )
 from saunet_tpu_torch.ops.cuda.dense_block import kernel_layout
-from torch_port_util import cuda_device, fill_variables  # noqa: F401
+from torch_port_util import (  # noqa: F401  (fixtures)
+    cuda_device,
+    fill_variables,
+    one_thread,
+)
 
 NUM_LAYERS, C0, HW, EPS = 3, 64, 16, 1e-5
 

@@ -34,7 +34,7 @@ from saunet_tpu_torch.models.jax_weights import (
 )
 from saunet_tpu_torch.parallel.parity import bn_buffers
 from saunet_tpu_torch.train import create_train_state, make_train_step, radam
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
     GOLDEN_LEAVES,
     GOLDEN_LR,
     GOLDEN_TRAIN_STEP,
@@ -42,6 +42,7 @@ from torch_port_util import (
     flat_leaves,
     golden_batch,
     golden_variables_like,
+    one_thread,
     to_jax_variables,
 )
 

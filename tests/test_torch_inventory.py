@@ -39,19 +39,12 @@ from saunet_tpu_torch.ops import filters, pooling
 from saunet_tpu_torch.ops.resize import resize_nearest
 from saunet_tpu_torch.train import losses
 from saunet_tpu_torch.utils import config, misc, profiling
-from torch_port_util import fill_variables
+from torch_port_util import (  # noqa: F401  (fixtures)
+    fill_variables,
+    one_thread,
+)
 
 B, S = 2, 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The module's torch work runs on one intra-op thread: at these sizes
-    more threads only contend with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _nchw(a: np.ndarray) -> torch.Tensor:

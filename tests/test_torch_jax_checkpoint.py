@@ -40,7 +40,11 @@ from saunet_tpu_torch.train import (
 from saunet_tpu_torch.utils import msgpack
 from test_torch_test_and_pack import SHAPES, _write_volumes
 from test_torch_train_cli import _args, _write_acdc
-from torch_port_util import fill_variables, flat_leaves
+from torch_port_util import (  # noqa: F401  (fixtures)
+    fill_variables,
+    flat_leaves,
+    one_thread,
+)
 
 
 def _tree_equal(ours, ref, path="") -> None:

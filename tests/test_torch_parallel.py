@@ -50,13 +50,14 @@ from saunet_tpu_torch.train import (
     radam,
 )
 from test_torch_train_cli import _write_acdc
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
     GOLDEN_LEAVES,
     GOLDEN_LR,
     GOLDEN_TRAIN_STEP,
     flat_leaves,
     golden_batch,
     golden_variables_like,
+    one_thread,
     to_jax_variables,
 )
 

@@ -30,6 +30,7 @@ from saunet_tpu_torch.parallel.mesh import choose_backend
 from saunet_tpu_torch.train import dual_loss, pixel_acc, save_checkpoint
 from saunet_tpu_torch.train.losses import DEFAULT_CLASS_WEIGHTS
 from saunet_tpu_torch.train.state import TrainState
+from torch_port_util import one_thread  # noqa: F401  (fixture)
 
 
 def _inputs(n=3, h=6, w=5, c=4, seed=0):

@@ -5,6 +5,7 @@ import pytest
 
 from saunet_tpu.data.phantom import make_phantom_set as make_phantom_set_jax
 from saunet_tpu_torch.data import make_phantom_set
+from torch_port_util import one_thread  # noqa: F401  (fixture)
 
 
 @pytest.mark.parametrize("seed", [0, 7])

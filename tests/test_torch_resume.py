@@ -67,7 +67,7 @@ from saunet_tpu_torch.train import (
 )
 from saunet_tpu_torch.train.optim import load_jax_opt_state
 from test_torch_train_cli import _args, _write_acdc
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
     FACADE_SAMPLES,
     GOLDEN_LEAVES,
     GOLDEN_RESUME,
@@ -80,6 +80,7 @@ from torch_port_util import (
     flat_leaves,
     golden_batch,
     golden_variables_like,
+    one_thread,
     to_jax_variables,
 )
 

@@ -31,11 +31,12 @@ from saunet_tpu_torch.interpret import (
 from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from test_torch_train_cli import _write_acdc
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
     GOLDEN_SALIENCY,
     SALIENCY_BATCH,
     SALIENCY_N,
     golden_variables_like,
+    one_thread,
 )
 
 

@@ -1,14 +1,15 @@
 """The port's SAUNet through its infer step, against the JAX package's
 `make_infer_step(fused_encoder=False)` (the f32 XLA route) for both
-`stream_impl`s, on one variable tree; the weight bridge; and the rule that
-the port never imports jax.
+`stream_impl`s, on one variable tree (the JAX outputs read from
+tests/torch_golden/infer_32.npz, which make_infer_32.py writes); the weight
+bridge; and the rule that the port never imports jax.
 
 The variables are never made by a flax `init` of the whole model: the tree
 of shapes comes from `jax.eval_shape` and every leaf is filled from a numpy
 seed (tests/torch_port_util.py). The two stream layouts share that tree."""
+import os
 import subprocess
 import sys
-from collections import namedtuple
 
 import numpy as np
 import pytest
@@ -18,19 +19,25 @@ import jax.numpy as jnp
 import torch
 
 from saunet_tpu.models import build_unet as build_unet_jax
-from saunet_tpu.train.state import make_infer_step as make_infer_step_jax
 from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from saunet_tpu_torch.ops.cuda import canny_edges_cuda, dense_block
 from saunet_tpu_torch.train import InferState, make_infer_step
-from torch_port_util import fill_variables, to_jax_variables
+from torch_port_util import (  # noqa: F401  (fixtures)
+    fill_variables,
+    one_thread,
+    to_jax_variables,
+    variables_digest,
+)
 
 BATCH, SIZE = 2, 32
-State = namedtuple("State", ["params", "batch_stats"])
+GOLDEN_INFER = os.path.join(os.path.dirname(__file__), "torch_golden",
+                            "infer_32.npz")
 
 
-@pytest.fixture(scope="module")
-def variables():
+def saunet_variables() -> dict:
+    """The f32 SAUNet's variables: its init traced at SIZE^2, filled from
+    seed 0."""
     model = build_unet_jax(dtype="float32", stream_impl="xla")
     shapes = jax.eval_shape(
         lambda k: model.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False),
@@ -39,10 +46,19 @@ def variables():
                            "batch_stats": shapes["batch_stats"]}, seed=0)
 
 
-@pytest.fixture(scope="module")
-def images():
+def saunet_images() -> np.ndarray:
     return np.random.RandomState(1).randn(BATCH, SIZE, SIZE, 3).astype(
         np.float32)
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return saunet_variables()
+
+
+@pytest.fixture(scope="module")
+def images():
+    return saunet_images()
 
 
 @pytest.fixture(scope="module")
@@ -98,17 +114,25 @@ def test_bridge_raises_on_unknown_or_missing_leaves(variables):
         from_jax_variables(missing)
 
 
+@pytest.fixture(scope="module")
+def golden_infer():
+    return dict(np.load(GOLDEN_INFER))
+
+
 @pytest.mark.parametrize("stream_impl", ["xla", "packed"])
 def test_infer_step_matches_jax(stream_impl, variables, images,
-                                port_outputs):
-    model = build_unet_jax(dtype="float32", stream_impl=stream_impl)
-    step = make_infer_step_jax(model, fused_encoder=False, with_probs=True,
-                               with_edge=True, with_att=True)
-
-    # the step reads only these two fields of a TrainState
-    state = State(variables["params"], variables["batch_stats"])
-    probs_j, preds_j, edge_j, atts_j = jax.tree.map(
-        np.asarray, step(state, jnp.asarray(images)))
+                                port_outputs, golden_infer):
+    """Against the JAX `make_infer_step(fused_encoder=False)` of the same
+    variables and images in each stream layout, read from
+    tests/torch_golden/infer_32.npz (make_infer_32.py writes it)."""
+    g = golden_infer
+    assert str(g["variables_digest"]) == variables_digest(variables)
+    np.testing.assert_array_equal(g["images"], images)
+    probs_j, preds_j, edge_j = (g[f"{stream_impl}/{k}"]
+                                for k in ("probs", "preds", "edge"))
+    atts_j = [g[f"{stream_impl}/att{i}"]
+              for i in range(sum(k.startswith(f"{stream_impl}/att")
+                                 for k in g))]
     probs, preds, edge, atts = port_outputs
 
     assert preds.shape == (BATCH, SIZE, SIZE)
@@ -142,7 +166,8 @@ def test_port_never_imports_jax():
         " 'PIL'))\n"
         "assert not bad, bad\n"
     )
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 @pytest.mark.parametrize("out_hw", [(32, 32), (17, 40)])

@@ -3,13 +3,16 @@ BN fold, the plain version and the CUDA kernel wrapper; `SAUNet.
 shape_stream_inputs` and `SAUNet.decode(edge_out=...)`) against the JAX
 package's `fold_shape_stream_params`, its Pallas kernel in interpret mode
 and its XLA shape stream, at the sizes of tests/test_shape_stream_kernel.py
-(32x32, batch 2), on a bf16 SAUNet.
+(32x32, batch 2), on a bf16 SAUNet. The JAX side is read from
+tests/torch_golden/shape_stream_32.npz (make_shape_stream_32.py writes it).
 
-The variables come from `jax.eval_shape` and `fill_variables`, never from a
-flax `init` of the whole model; the encoder taps f2..f5 are drawn from a
-numpy seed at their shapes (the encoder does not run). The JAX package is
-imported inside the fixtures that use it, so that the card test also runs
-where jax is not installed (`pytest --noconftest`)."""
+The variables are the JAX SAUNet's tree filled from a numpy seed
+(`fill_variables`), never a flax `init` of the whole model; the encoder
+taps f2..f5 are drawn from a numpy seed at their shapes (the encoder does
+not run). Only the fixtures that compare with the golden use jax (for its
+tree utilities), so that the card test also runs where jax is not
+installed (`pytest --noconftest`)."""
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -35,9 +38,17 @@ from saunet_tpu_torch.ops.cuda.shape_stream import (
     layout_specs,
     operand_specs,
 )
-from torch_port_util import cuda_device, fill_variables  # noqa: F401
+from torch_port_util import (  # noqa: F401  (fixtures)
+    cuda_device,
+    fill_variables,
+    one_thread,
+    to_jax_variables,
+    variables_digest,
+)
 
 BATCH, SIZE, EPS = 2, 32, 1e-5
+GOLDEN_STREAM = os.path.join(os.path.dirname(__file__), "torch_golden",
+                             "shape_stream_32.npz")
 # f2..f5 of a 32x32 input: (channels, side)
 TAPS = ((128, 8), (256, 4), (512, 2), (1024, 2))
 # The fuse kernel is scaled by this in every test. With the filled weights
@@ -55,39 +66,35 @@ def _bf16_ulp(v: np.ndarray) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(a)) - 7)
 
 
-@pytest.fixture(scope="module")
-def jx():
-    """The JAX package's bf16 SAUNet, its filled variables (fuse kernel
-    scaled by FUSE_SCALE), taps and image, and the shape-stream kernel
-    with its fold."""
-    jax = pytest.importorskip("jax")
-    jnp = jax.numpy
-    from saunet_tpu.models import SAUNet
-    from saunet_tpu.ops.pallas.shape_stream import (
-        fold_shape_stream_params as fold,
-    )
-    from saunet_tpu.ops.pallas.shape_stream import shape_stream_fused as fused
-
-    model = SAUNet(num_classes=4, dtype=jnp.bfloat16, edge_kernel="xla")
-    shapes = jax.eval_shape(
-        lambda k: model.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False),
-        jax.random.PRNGKey(0))
-    variables = fill_variables({"params": shapes["params"],
-                                "batch_stats": shapes["batch_stats"]},
-                               seed=0)
-    fuse = variables["params"]["fuse"]
-    fuse["kernel"] = fuse["kernel"] * np.float32(FUSE_SCALE)
+def stream_inputs():
+    """The encoder taps f2..f5 (NHWC) and the image, from a numpy seed."""
     rs = np.random.RandomState(1)
     taps = [rs.randn(BATCH, s, s, c).astype(np.float32) for c, s in TAPS]
     image = rs.rand(BATCH, SIZE, SIZE, 3).astype(np.float32)
-    return SimpleNamespace(jax=jax, jnp=jnp, model=model,
-                           variables=variables, taps=taps, image=image,
-                           fold=fold, fused=fused)
+    return taps, image
 
 
-def _jax_args(jx, dtype):
-    return ([jx.jnp.asarray(t, dtype) for t in jx.taps],
-            jx.jnp.asarray(jx.image, dtype))
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's side, read from GOLDEN_STREAM (the fold, the
+    packed inputs, the Pallas kernel in interpret mode, the XLA stream),
+    with the variables it was computed from (the bf16 SAUNet's tree filled
+    from seed 0, the fuse kernel scaled by FUSE_SCALE; filled here on the
+    port's identical tree, and held to the golden's digest), taps and
+    image."""
+    pytest.importorskip("jax")  # fill_variables flattens with its tree
+    ref = dict(np.load(GOLDEN_STREAM))
+    variables = fill_variables(to_jax_variables(build_unet(
+        dtype="bfloat16")), seed=0)
+    fuse = variables["params"]["fuse"]
+    fuse["kernel"] = fuse["kernel"] * np.float32(FUSE_SCALE)
+    assert str(ref["variables_digest"]) == variables_digest(variables)
+    taps, image = stream_inputs()
+    for i, tap in enumerate(taps):
+        np.testing.assert_array_equal(ref[f"taps{i}"], tap)
+    np.testing.assert_array_equal(ref["image"], image)
+    return SimpleNamespace(variables=variables, taps=taps, image=image,
+                           ref=ref)
 
 
 def _port_args(jx, dtype=torch.bfloat16):
@@ -99,9 +106,7 @@ def _port_args(jx, dtype=torch.bfloat16):
 @pytest.fixture(scope="module")
 def packed(jx):
     """The JAX package's packed stream input, (N, H, W, 67) bf16."""
-    return np.asarray(jx.model.apply(
-        jx.variables, *_jax_args(jx, jx.jnp.bfloat16),
-        method="shape_stream_inputs"), np.float32)
+    return jx.ref["packed"]
 
 
 def _port_model(jx, dtype: str = "bfloat16"):
@@ -118,7 +123,8 @@ def port(jx):
 
 
 def test_fold_matches_jax(jx, port):
-    ref = jx.fold(jx.variables["params"], jx.variables["batch_stats"], EPS)
+    ref = {k[len("fold/"):]: v for k, v in jx.ref.items()
+           if k.startswith("fold/")}
     _, ours = port
     assert len(ours) == 3 * (18 + 2) + 1  # and r_w1k, r_w2k a stage
     checked = 0
@@ -175,10 +181,7 @@ def test_shape_stream_inputs_match_jax(jx, port, packed, dtype):
     bf16 results stay within about 2 ulps of each channel's largest |value|
     from the f32 result, and within 3 of each other (measured)."""
     if dtype == "float32":
-        model = _port_model(jx, "float32")
-        ref = np.asarray(jx.model.clone(dtype=jx.jnp.float32).apply(
-            jx.variables, *_jax_args(jx, jx.jnp.float32),
-            method="shape_stream_inputs"))
+        model, ref = _port_model(jx, "float32"), jx.ref["inputs_f32"]
     else:
         model, ref = port[0], packed
     with torch.no_grad():
@@ -200,10 +203,8 @@ def test_plain_matches_pallas_interpret(jx, port, packed, band_rows):
     banded alike: max|d| 0.0078 (two bf16 ulps of an output in [0.5, 1)),
     as large as the plain version's own spread under another summation
     order (mkldnn off); median 0. Held at 0.012 and 0.001."""
-    ref = np.asarray(jx.fused(
-        jx.jnp.asarray(packed, jx.jnp.bfloat16), jx.variables["params"],
-        jx.variables["batch_stats"], eps=EPS, band_rows=band_rows,
-        interpret=True), np.float32)
+    ref = jx.ref["pallas/whole" if band_rows is None
+                 else f"pallas/band{band_rows}"]
     out = shape_stream_plain(torch.from_numpy(packed), port[1]).numpy()
     assert out.shape == ref.shape == (BATCH, SIZE, SIZE, 1)
     np.testing.assert_allclose(out, ref, rtol=0, atol=0.012)
@@ -215,10 +216,7 @@ def test_plain_matches_xla_stream(jx, port):
     rounds after every op, at the tolerances of
     tests/test_shape_stream_kernel.py. Measured: max|d| 0.0148, median
     0.0017."""
-    stream = jx.jax.jit(lambda v, taps, x: jx.model.apply(
-        v, taps, x, False, method="shape_stream")[0])
-    ref = np.asarray(stream(jx.variables, *_jax_args(jx, jx.jnp.bfloat16)),
-                     np.float32)
+    ref = jx.ref["xla_stream"]
     model, folded = port
     with torch.no_grad():
         packed = model.shape_stream_inputs(*_port_args(jx))

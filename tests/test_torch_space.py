@@ -62,12 +62,13 @@ from saunet_tpu_torch.train import (
     make_train_step,
     radam,
 )
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
     GOLDEN_LEAVES,
     GOLDEN_LR,
     GOLDEN_SPACE_TRAIN_STEP,
     flat_leaves,
     golden_variables_like,
+    one_thread,
     space_batch,
     to_jax_variables,
 )
@@ -134,19 +135,6 @@ def _dense_input(h):
     order of the BatchNorm statistics flips its gradient (with GELU in
     place of ReLU the gradients agree within 5e-9)."""
     return np.random.RandomState(9).randn(4, 16, h, 8).astype(np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The module's one-process references run on one intra-op thread, as
-    its ranks do: at these sizes more threads only contend with the
-    ranks and the other test workers (the 64^2 step took 6 s on one
-    thread of an idle core and over 100 s on eight threads beside three
-    busy workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,7 @@ from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.init import calibrate_bn_, init_random_
 from saunet_tpu_torch.ops.cuda import dense_block
 from saunet_tpu_torch.train import InferState, make_infer_step
-from torch_port_util import cuda_device  # noqa: F401  (fixture)
+from torch_port_util import cuda_device, one_thread  # noqa: F401  (fixtures)
 
 CROP = 32
 SHAPES = {1: (40, 44, 2), 2: (36, 30, 3)}  # patient -> (H, W, Z)

@@ -17,6 +17,7 @@ from saunet_tpu_torch.cli.saliency import main as saliency_main
 from saunet_tpu_torch.cli.train import main as train_main
 from saunet_tpu_torch.cli.train import parse_args
 from saunet_tpu_torch.data import nifti
+from torch_port_util import one_thread  # noqa: F401  (fixture)
 
 SHAPE = (40, 44, 2)  # (H, W, Z) of every synthetic volume
 

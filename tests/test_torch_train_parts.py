@@ -21,6 +21,7 @@ from saunet_tpu_torch.data import loader
 from saunet_tpu_torch.models.norm import BatchNorm2d
 from saunet_tpu_torch.train import checkpoint, losses, metrics, optim
 from saunet_tpu_torch.train.state import TrainState
+from torch_port_util import one_thread  # noqa: F401  (fixture)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

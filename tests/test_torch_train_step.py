@@ -2,23 +2,19 @@
 tests/torch_golden/train_step_32.npz (a live jitted JAX train step of the
 whole SAUNet takes minutes to compile on one CPU core; the file is written
 by torch_port_util.write_train_step_golden), with and without `fix_bn`;
-the eval step against the live JAX `make_eval_step(fused_encoder=False)`
-on a padded batch; and the rule that the states run on the card unless the
-caller names the CPU.
+the eval step against the JAX `make_eval_step(fused_encoder=False)` on a
+padded batch, read from tests/torch_golden/eval_step_32.npz
+(make_eval_step_32.py); and the rule that the states run on the card
+unless the caller names the CPU.
 
 Both sides start from the same variables, made from a numpy seed
-(`golden_variables`: eval_shape + fill, never a flax init of the SAUNet)
-and bridged with `from_jax_variables`."""
+(`golden_variables`: eval_shape + fill, never a flax init of the SAUNet;
+here `golden_variables_like` fills the port's identical tree) and bridged
+with `from_jax_variables`."""
 import numpy as np
 import pytest
-
-import jax
-import jax.numpy as jnp
 import torch
 
-from saunet_tpu.models import build_unet as build_unet_jax
-from saunet_tpu.train.state import TrainState as JaxTrainState
-from saunet_tpu.train.state import make_eval_step as make_eval_step_jax
 from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.jax_weights import from_jax_variables
 from saunet_tpu_torch.ops.cuda import KERNELS
@@ -29,14 +25,18 @@ from saunet_tpu_torch.train import (
     make_train_step,
     radam,
 )
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
+    GOLDEN_EVAL_STEP,
     GOLDEN_LEAVES,
     GOLDEN_LR,
     GOLDEN_TRAIN_STEP,
     flat_leaves,
     golden_batch,
-    golden_variables,
+    golden_variables_like,
+    one_thread,
+    padded_eval_batch,
     to_jax_variables,
+    variables_digest,
 )
 
 LOSS_PARTS = ("loss", "ce", "dice", "edge")
@@ -44,9 +44,10 @@ LOSS_PARTS = ("loss", "ce", "dice", "edge")
 
 @pytest.fixture(scope="module")
 def variables():
-    return golden_variables(build_unet_jax(dtype="float32",
-                                           stream_impl="xla",
-                                           edge_kernel="xla"))
+    """`golden_variables` of the JAX SAUNet, filled on the port's tree
+    without tracing the JAX init (the eval golden's digest holds the two
+    equal)."""
+    return golden_variables_like(build_unet(dtype="float32"))
 
 
 @pytest.fixture(scope="module")
@@ -123,21 +124,19 @@ def test_train_step_matches_jax(fix_bn, variables, golden):
 
 def test_eval_step_matches_jax_with_padding(variables):
     """Two golden samples plus a third that repeats the second and is
-    masked out by `valid`, as the train CLI pads its last validation batch."""
-    b = {k: v[:2] for k, v in golden_batch().items()}
-    batch = {k: np.concatenate([v, v[1:2]]) for k, v in b.items()}
+    masked out by `valid`, as the train CLI pads its last validation batch,
+    against the JAX `make_eval_step(fused_encoder=False)` read from
+    tests/torch_golden/eval_step_32.npz (make_eval_step_32.py writes it)."""
+    batch = padded_eval_batch()
+    b = {k: v[:2] for k, v in batch.items() if k != "valid"}
     n = len(batch["label"])
-    batch["valid"] = (np.arange(n) < n - 1).astype(np.float32)
-
-    jmodel = build_unet_jax(dtype="float32", stream_impl="xla",
-                            edge_kernel="xla")
-    jstate = JaxTrainState(step=jnp.zeros([], jnp.int32),
-                           params=variables["params"],
-                           batch_stats=variables["batch_stats"],
-                           opt_state=None)
-    probs_j, preds_j, metrics_j = jax.tree.map(np.asarray, make_eval_step_jax(
-        jmodel, fused_encoder=False, with_probs=True)(
-            jstate, {k: jnp.asarray(v) for k, v in batch.items()}))
+    g = dict(np.load(GOLDEN_EVAL_STEP))
+    assert str(g["variables_digest"]) == variables_digest(variables)
+    for k, v in batch.items():
+        np.testing.assert_array_equal(g[f"batch/{k}"], v, err_msg=k)
+    probs_j, preds_j = g["probs"], g["preds"]
+    metrics_j = {k[len("metric/"):]: v for k, v in g.items()
+                 if k.startswith("metric/")}
 
     model = port_model(variables)
     tx = radam(GOLDEN_LR)

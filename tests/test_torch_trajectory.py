@@ -26,26 +26,15 @@ from saunet_tpu_torch.cli import fidelity as gate
 from saunet_tpu_torch.models import build_unet
 from saunet_tpu_torch.models.init import fill_from_seed_
 from saunet_tpu_torch.ops.cuda import KERNELS
-from torch_port_util import (
+from torch_port_util import (  # noqa: F401  (fixture)
     GOLDEN_SEED,
     flat_leaves,
     golden_variables_like,
+    one_thread,
     to_jax_variables,
 )
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The module's torch work runs on one intra-op thread: at these sizes
-    more threads only contend with the other test workers (12 steps at
-    32^2 took 730 s on eight intra-op threads beside five busy test
-    workers, 14 s on one thread of one core)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

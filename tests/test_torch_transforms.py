@@ -17,19 +17,9 @@ import torch
 
 from saunet_tpu_torch.data import transforms as T
 from saunet_tpu_torch.ops.cuda import warp
-from torch_port_util import cuda_device  # noqa: F401  (fixture)
+from torch_port_util import cuda_device, one_thread  # noqa: F401  (fixtures)
 
 N, H, W = 3, 20, 24
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The module's torch work runs on one intra-op thread: at these sizes
-    more threads only contend with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -147,6 +147,22 @@ def golden_batch() -> dict:
             "edge": (rs.rand(n, s, s, 1) < 0.2).astype(np.float32)}
 
 
+GOLDEN_EVAL_STEP = os.path.join(os.path.dirname(__file__), "torch_golden",
+                                "eval_step_32.npz")
+
+
+def padded_eval_batch() -> dict:
+    """Two golden samples plus a third that repeats the second and is
+    masked out by 'valid', as the train CLI pads its last validation batch
+    (tests/torch_golden/make_eval_step_32.py runs the JAX eval step on
+    it)."""
+    b = {k: v[:2] for k, v in golden_batch().items()}
+    batch = {k: np.concatenate([v, v[1:2]]) for k, v in b.items()}
+    n = len(batch["label"])
+    batch["valid"] = (np.arange(n) < n - 1).astype(np.float32)
+    return batch
+
+
 GOLDEN_SPACE_TRAIN_STEP = os.path.join(os.path.dirname(__file__),
                                        "torch_golden",
                                        "train_step_64_space.npz")
@@ -178,6 +194,20 @@ def flat_leaves(tree: dict) -> dict:
 
     return {"/".join(str(getattr(p, "key", p)) for p in path): np.asarray(v)
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def variables_digest(variables: dict) -> str:
+    """sha256 over every leaf's path, dtype, shape and bytes, in path order:
+    a golden stores the digest of the variables it was computed from, and
+    its test checks that it starts from the same."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(flat_leaves(variables).items()):
+        v = np.ascontiguousarray(v)
+        h.update(f"{k}|{v.dtype}|{v.shape}|".encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
 
 
 def write_train_step_golden(path: str = GOLDEN_TRAIN_STEP) -> None:
@@ -345,3 +375,21 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's torch work runs on one intra-op thread. Every port test
+    module imports this fixture (tests/test_torch_tools.py checks that),
+    and every child process a port test starts gets OMP_NUM_THREADS=1: at
+    test sizes more threads only contend with the other test workers (12
+    train steps at 32^2 took 730 s on eight intra-op threads beside five
+    busy workers, 14 s on one thread of one core; a saliency module that
+    takes 16 s on one thread did not finish in 120 s on eight beside
+    seven busy cores)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
