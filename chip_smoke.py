@@ -194,6 +194,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      on phase 8's volumes, where H/32 holds 7 rows over 2 ranks): IoU
      printed once, one checkpoint, served by test_and_pack; and the dry
      run on 4 ranks as a 2 x 2 grid at 64^2.
+  12. profilers: every mode of `saunet_tpu_torch.cli.profile` at its JAX
+     tool's geometry (infer at 224^2 x 64 and at 512^2 x 8, decode, train
+     with augmentation and the decoder's stages, opt_metrics, block_train,
+     concat, res1, augment, saliency, output_layout, scaling), each table
+     printed with the card's name and power limit and its JSON written to
+     chiprun_out/profile_<name>.json. Fatal: each mode's kernel launches
+     (a pass of the infer step's route 1 Canny and 4 dense blocks, the K4
+     route 1 shape stream more; the full augmentation 1 warp; the train
+     step 1 warp, 1 Canny, no dense block); in infer and decode each
+     route's directly timed segments within 10% of the route timed whole;
+     scaling's gradient class equal to phase 10's DDP bucket bytes a step,
+     and its row exchanges predicted at 512^2 (8 samples a rank) equal to
+     phase 11's count and bytes a step.
 Then a {"kernels": [...]} line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type,
 H100 SXM data sheet) and, last, the {"ok": true, "device": ...} line.
@@ -214,11 +227,11 @@ import time
 
 BATCH, SIZE = 64, 224
 CANNY_LARGE = (8, 512, 512)
-TIMED_RUNS = 20
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# the timing helpers and the H100's peaks, shared with the package's
+# profilers (saunet_tpu_torch/utils/profiling.py): bound in main() once the
+# package is found beside this script
+bound = cuda_ms = device_ms_by_kernel = profile_window = None
+F32_OPS_PER_S = BF16_OPS_PER_S = None
 # Canny's work per pixel, counted from csrc/canny.cu: Sobel 2x17, L1
 # magnitude 3, direction 8, non-maximum suppression 4, thresholds 2,
 # 8 hysteresis rounds of 14 operations on a 32-pixel word (4 in all),
@@ -234,35 +247,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float):
-    """(bound_ms, bound_by): the least time for `nbytes` of device memory
-    traffic and `ops` operations on this card's published peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Median milliseconds of `fn()` over `runs` CUDA-event timings."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def synthetic_labelled(n: int, h: int, w: int, gen, device):
@@ -289,12 +276,9 @@ def synthetic_slices(n: int, h: int, w: int, gen, device):
 def phase_device():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    from saunet_tpu_torch.utils.profiling import card as card_of
+
+    card = card_of()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -614,35 +598,6 @@ def phase_main_path(model, state, images):
                       "logits_argmax_agreement": agree,
                       "logits_max_abs_diff": dmax,
                       "tap_max_abs_ref": tap_scales}
-
-
-def device_ms_by_kernel(fn, calls: int = 5) -> dict:
-    """Device ms per call of `fn` for each CUDA kernel (and copy) it
-    launches, by short kernel name, from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    key = ("device_time_total" if hasattr(events[0], "device_time_total")
-           else "cuda_time_total")
-    out = {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        base = (e.key.replace("(anonymous namespace)::", "").split("(")[0]
-                .strip().removeprefix("void "))
-        head, _, tmpl = base.partition("<")
-        if len(tmpl) > 24:
-            tmpl = tmpl[:20] + "...>"
-        name = head.split("::")[-1] + ("<" + tmpl if tmpl else "")
-        out[name] = out.get(name, 0.0) + getattr(e, key) / calls / 1e3
-    return out
 
 
 def _stage_ms(fn, calls: int = 5) -> dict:
@@ -1129,51 +1084,6 @@ def _zero_counts():
         k.launches = 0
 
 
-def _profile(step_fn, steps: int = 2,
-             table_file: str = "train_step_profile.txt") -> dict:
-    """torch.profiler over `steps` calls of `step_fn`: device time by
-    kernel, the union of kernel intervals against the host window, and the
-    top operations (the whole table goes to OUT_DIR/`table_file`)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step_fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
-    key = ("self_device_time_total"
-           if hasattr(prof.key_averages()[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    table = prof.key_averages().table(sort_by=key, row_limit=40)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, table_file), "w") as f:
-        f.write(table)
-    top = sorted(((getattr(e, key), e.key) for e in prof.key_averages()
-                  if e.device_type != DeviceType.CUDA
-                  and getattr(e, key) > 0), reverse=True)[:12]
-    busy_ms = busy_us / 1e3
-    return {"window_ms": window_ms, "steps": steps,
-            "kernels": len(spans), "device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / window_ms) if spans
-            else None,
-            "top_ops_self_device_ms": [[k, t / 1e3 / steps] for t, k in top]}
-
-
 def phase_train_step(device):
     """The training main path at full width: b64 at 224^2, bf16."""
     import torch
@@ -1258,7 +1168,8 @@ def phase_train_step(device):
         nonlocal state
         state, _ = step(state, batch, dgen)
 
-    prof = _profile(one_step)
+    prof = profile_window(one_step, table_path=os.path.join(
+        OUT_DIR, "train_step_profile.txt"))
     log(f"train step profile: window {prof['window_ms']:.3f} ms for "
         f"{prof['steps']} steps, {prof['kernels']} kernels, device busy "
         f"{prof['device_busy_ms']:.3f} ms, idle share "
@@ -2338,8 +2249,9 @@ def phase_saliency(device, root, ckpt, tmp):
         f"{SMOOTHGRAD_BATCH}: {map_s * 1e3:.3f} ms a map median of 5 "
         f"({1 / map_s:.4f} maps/s), maps {times}, peak memory "
         f"{peak / 2**30:.3f} GiB")
-    prof = _profile(lambda: smoothgrad_map(model), steps=1,
-                    table_file="saliency_profile.txt")
+    prof = profile_window(lambda: smoothgrad_map(model), steps=1,
+                          table_path=os.path.join(OUT_DIR,
+                                                  "saliency_profile.txt"))
     log(f"guided SmoothGrad profile: window {prof['window_ms']:.3f} ms, "
         f"{prof['kernels']} kernels, device busy "
         f"{prof['device_busy_ms']:.3f} ms, idle share "
@@ -2672,11 +2584,13 @@ def phase_data_parallel(device, tmp, root, k3_scale: float):
         log(f"rank {r}: step {step_ms:.3f} ms median of "
             f"{len(x['step_ms'])} {x['step_ms']}, gradient all-reduce "
             f"window {ar_ms:.3f} ms a step over {x['buckets']} buckets "
+            f"of {x['bucket_bytes'][-1]} bytes "
             f"({x['allreduce_window_ms']}), peak memory "
             f"{x['peak_memory_bytes'] / 2**30:.3f} GiB")
         ranks.append({"step_ms": step_ms, "steps_ms": x["step_ms"],
                       "allreduce_window_ms": ar_ms,
                       "buckets": x["buckets"],
+                      "bucket_bytes": x["bucket_bytes"],
                       "peak_memory_bytes": x["peak_memory_bytes"]})
     ddp_launches = {k: sum(_by_kernel(x["launches"])[k]
                            + _by_kernel(x["eval"]["launches"])[k]
@@ -3032,6 +2946,91 @@ def phase_space(device, tmp, root):
         "dryrun_2x2_loss": dry_loss, "dryrun_2x2_seconds": dry_s}
 
 
+# phase 12: every profiler mode (saunet_tpu_torch/profile/, through the
+# CLI's own argument parser) at its JAX tool's geometry, and infer at
+# 512^2 x 8, most with fewer timed runs than their tools (20 or 10) to
+# keep the phase short (the train-family deltas want 5: with 3 they moved
+# by +-25 ms). scaling's link rate is NVLink's on the H100 SXM,
+# 900 GB/s a card both ways (NVIDIA data sheet), 450 each way: a stated
+# rate, not a measured one
+PROFILES = (
+    ("infer", ("--what", "infer", "--steps", "10")),
+    ("infer_512", ("--what", "infer", "--hw", "512", "--batch", "8",
+                   "--steps", "10")),
+    ("decode", ("--what", "decode", "--steps", "10")),
+    ("train", ("--what", "train", "--augment", "--decoder", "--steps", "5")),
+    ("opt_metrics", ("--what", "opt_metrics", "--steps", "5")),
+    ("block_train", ("--what", "block_train", "--steps", "5")),
+    ("concat", ("--what", "concat", "--steps", "3")),
+    ("res1", ("--what", "res1", "--steps", "10")),
+    ("augment", ("--what", "augment")),
+    ("saliency", ("--what", "saliency", "--steps", "3")),
+    ("output_layout", ("--what", "output_layout", "--steps", "3")),
+    ("scaling", ("--what", "scaling", "--link_gbps", "450")))
+# the directly timed forward segments of a pass against the same route
+# timed whole, uninstrumented
+SEGMENT_SUM_RTOL = 0.1
+
+
+def phase_profilers(card: str, ddp: dict, space: dict):
+    """Every profiler mode on the card: its table printed (with the card's
+    name and power limit) and its JSON written to OUT_DIR; each mode checks
+    its own kernel launches and raises on a count that differs. Then, in
+    infer and decode, each route's segments within SEGMENT_SUM_RTOL of the
+    route timed whole; in scaling, the gradient class equal to phase 10's
+    DDP bucket bytes a step and the row exchanges predicted at 512^2 (8
+    samples a rank) equal in count and bytes to phase 11's a step."""
+    import torch
+
+    from saunet_tpu_torch.cli import profile as cli
+    from saunet_tpu_torch.profile.common import print_table
+
+    out, seconds = {}, {}
+    for name, argv in PROFILES:
+        t0 = time.perf_counter()
+        res = cli.run(cli.parse_args(argv))
+        seconds[name] = time.perf_counter() - t0
+        print_table(res)
+        log(f"profile {name}: {seconds[name]:.1f} s")
+        require(res["card"] == card, f"profile {name} ran on {res['card']}")
+        if "launches" in res:
+            require(res["launches"] is not None,
+                    f"profile {name} checked no launches")
+        with open(os.path.join(OUT_DIR, f"profile_{name}.json"), "w") as f:
+            json.dump(res, f)
+        for route, r in res.get("routes", {}).items():
+            log(f"profile {name} {route}: segments {r['segments_ms']:.3f} ms, "
+                f"whole {r['whole_ms']:.3f} ms")
+            require(abs(r["ratio"] - 1) <= SEGMENT_SUM_RTOL,
+                    f"profile {name} {route}: the segments sum to "
+                    f"{r['ratio']:.3f} of the whole")
+        out[name] = res
+        torch.cuda.empty_cache()
+
+    from saunet_tpu_torch.profile.scaling import by_class
+
+    inv = out["scaling"]["inventories"]
+    buckets = ddp["per_rank_timing"][0]["bucket_bytes"][-1]
+    for grid in inv:
+        grads = by_class(inv[grid]["collectives"])["gradients"]["bytes"]
+        log(f"scaling {grid}: gradient class {grads} bytes a step, phase "
+            f"10's DDP buckets {buckets}")
+        require(grads == buckets, f"scaling {grid}: gradients {grads} bytes, "
+                                  f"phase 10's buckets {buckets}")
+    rows = out["scaling"]["predicted"]["2x2"]["512^2 b8"]["classes"][
+        "row_exchanges"]
+    measured = space["per_rank"][0]
+    log(f"scaling: row exchanges predicted at 512^2 b8 {rows['count']} "
+        f"({rows['bytes'] / 2**20:.3f} MiB), phase 11 "
+        f"{measured['exchanges_a_step']} "
+        f"({measured['exchange_bytes_a_step'] / 2**20:.3f} MiB)")
+    require(rows["count"] == measured["exchanges_a_step"]
+            and rows["bytes"] == measured["exchange_bytes_a_step"],
+            "scaling's row exchanges at 512^2 differ from phase 11's")
+    log(f"profilers: {sum(seconds.values()):.1f} s; {seconds}")
+    return {"seconds": seconds, "results": out}
+
+
 def main() -> int:
     try:
         import torch
@@ -3051,8 +3050,18 @@ def main() -> int:
         print("chip_smoke: saunet_tpu_torch not found beside this script; "
               "run it from the root of the repository", file=sys.stderr)
         return 1
+    global bound, cuda_ms, device_ms_by_kernel, profile_window
+    global F32_OPS_PER_S, BF16_OPS_PER_S
     from saunet_tpu_torch.data import normalize_for_eval
     from saunet_tpu_torch.train import InferState
+    from saunet_tpu_torch.utils.profiling import (
+        BF16_OPS_PER_S,
+        F32_OPS_PER_S,
+        bound,
+        cuda_ms,
+        device_ms_by_kernel,
+        profile_window,
+    )
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -3096,6 +3105,8 @@ def main() -> int:
                                                 dense["max_abs_ref"])
         torch.cuda.empty_cache()
         space_launches, space = phase_space(device, tmp, root)
+    torch.cuda.empty_cache()
+    profilers = phase_profilers(card, ddp, space)
     require("jax" not in sys.modules, "the port imported jax")
 
     by_path = {"infer": infer_launches, "k4_route": k4_launches,
@@ -3188,7 +3199,8 @@ def main() -> int:
         "convergence": convergence,
         "trained_serving": trained,
         "train_cli": train_cli, "layouts": layouts, "saliency": saliency,
-        "data_parallel": ddp, "space": space}))
+        "data_parallel": ddp, "space": space,
+        "profiler_seconds": profilers["seconds"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

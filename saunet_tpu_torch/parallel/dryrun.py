@@ -51,13 +51,16 @@ def mesh_step(mesh: DataMesh, hw: int = 64) -> float:
     tx = radam(1e-3)
     state = create_train_state(model, tx, mesh=mesh)
     step = make_train_step(model, tx, mesh=mesh)
-    n = mesh.world
-    rs = np.random.RandomState(0)
-    batch = {"image": rs.randn(n, hw, hw, 3).astype(np.float32),
-             "label": rs.randint(0, 4, size=(n, hw, hw)).astype(np.int32),
-             "edge": (rs.rand(n, hw, hw, 1) > 0.8).astype(np.float32)}
-    state, metrics = step(state, shard_batch(batch, mesh))
+    state, metrics = step(state, shard_batch(dry_batch(mesh.world, hw), mesh))
     return float(metrics["loss"])
+
+
+def dry_batch(n: int, hw: int) -> dict:
+    """The dry run's global batch of n samples at hw^2, numpy, seed 0."""
+    rs = np.random.RandomState(0)
+    return {"image": rs.randn(n, hw, hw, 3).astype(np.float32),
+            "label": rs.randint(0, 4, size=(n, hw, hw)).astype(np.int32),
+            "edge": (rs.rand(n, hw, hw, 1) > 0.8).astype(np.float32)}
 
 
 def run_mesh_step(n: int, hw: int = 64, device: str = "cuda",

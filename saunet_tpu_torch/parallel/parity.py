@@ -417,12 +417,18 @@ def dryrun_case(mesh: DataMesh, hw: int) -> float:
 
 
 def run_cases(mesh: DataMesh, cases: Dict[str, tuple]) -> dict:
-    """{name: (function name in this module, kwargs)} -> {name: result},
-    run in order on the ranks, each case's seconds printed."""
+    """{name: (function name in this module, or 'module:function' in the
+    package, kwargs)} -> {name: result}, run in order on the ranks, each
+    case's seconds printed."""
     out = {}
     for name, (fn, kwargs) in cases.items():
+        if ":" in fn:
+            module, attr = fn.split(":")
+            fn = getattr(importlib.import_module(module), attr)
+        else:
+            fn = globals()[fn]
         t0 = time.perf_counter()
-        out[name] = globals()[fn](mesh, **kwargs)
+        out[name] = fn(mesh, **kwargs)
         print(f"case {name}: {time.perf_counter() - t0:.3f} s", flush=True)
     return out
 
@@ -447,15 +453,17 @@ def cli_case(mesh: DataMesh, argv: list) -> dict:
     return {"saved": saved}
 
 
-def _timed_allreduce_hook(spans: list):
+def timed_allreduce_hook(spans: list):
     """DDP's default gradient hook (divide by the world, all-reduce), with
-    the host clock at each bucket's launch and completion in `spans`."""
+    the host clock at each bucket's launch and completion, and the
+    bucket's bytes, in `spans`."""
     def hook(group, bucket):
         t0 = time.perf_counter()
         buf = bucket.buffer().div_(dist.get_world_size(group))
+        nbytes = buf.numel() * buf.element_size()
 
         def done(fut):
-            spans.append((t0, time.perf_counter()))
+            spans.append((t0, time.perf_counter(), nbytes))
             return fut.value()[0]
 
         return dist.all_reduce(buf, group=group,
@@ -498,10 +506,11 @@ def timed_case(mesh: DataMesh, weights: Weights,
     samples (`parity_rows`); then
     `timed_steps` more steps on the host clock (median ms), the peak
     memory, and the gradient all-reduce time per step: the host window
-    from the first bucket's launch to the last bucket's completion, and,
-    under NCCL, the NCCL kernels' device time; the row exchanges (count
-    and bytes) of each timed step, and one more step with every exchange
-    timed alone (`exchange_trace`: buffer shape, bytes, seconds).
+    from the first bucket's launch to the last bucket's completion, the
+    buckets' bytes and, under NCCL, the NCCL kernels' device time; the
+    row exchanges (count and bytes) of each timed step, and one more step
+    with every exchange timed alone (`exchange_trace`: buffer shape,
+    bytes, seconds).
     With `plain_turns`, the one-process `make_train_step` on another copy
     of the model is timed against the mesh step in turns, with and
     without synced BatchNorm (plain, synced, mesh, mesh, synced, plain,
@@ -525,7 +534,7 @@ def timed_case(mesh: DataMesh, weights: Weights,
     with recording_kernel_calls() as seen:
         first, state, step, rows, gen = _first_step(
             mesh, weights, batch, lr, dtype, augment_seed,
-            hook=_timed_allreduce_hook(spans), space=space)
+            hook=timed_allreduce_hook(spans), space=space)
     out.update(first, parity=kernel_parity(seen),
                parity_rows=kernel_parity(seen, CLI_ROWS))
     del seen
@@ -538,15 +547,16 @@ def timed_case(mesh: DataMesh, weights: Weights,
 
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
-    times, windows, exchanges = [], [], []
+    times, windows, exchanges, bucket_bytes = [], [], [], []
     for _ in range(timed_steps):
         spans.clear()
         calls, nbytes = exchange_rows.calls, exchange_rows.bytes
         t0 = time.perf_counter()
         one()
         times.append((time.perf_counter() - t0) * 1e3)
-        windows.append((max(b for _, b in spans) - min(a for a, _ in spans))
-                       * 1e3)
+        windows.append((max(b for _, b, _ in spans)
+                        - min(a for a, _, _ in spans)) * 1e3)
+        bucket_bytes.append(sum(n for _, _, n in spans))
         exchanges.append((exchange_rows.calls - calls,
                           exchange_rows.bytes - nbytes))
     if space > 1:
@@ -554,7 +564,8 @@ def timed_case(mesh: DataMesh, weights: Weights,
         one()
         out["exchange_trace"], exchange_rows.trace = exchange_rows.trace, None
     out.update(step_ms=times, allreduce_window_ms=windows,
-               buckets=len(spans), exchanges=exchanges,
+               buckets=len(spans), bucket_bytes=bucket_bytes,
+               exchanges=exchanges,
                peak_memory_bytes=(torch.cuda.max_memory_allocated(
                    mesh.device) if cuda else None))
     if mesh.backend == "nccl":

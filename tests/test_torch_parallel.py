@@ -23,7 +23,11 @@ the parent compares:
   (g) the dense blocks' train layouts on the pair: the global-batch step
       with every block 'fused' and rematerialised against the JAX step as
       in (a); a 'fused', 'buffer' or rematerialised DenseBlock on the
-      'data' axis and as a 'space' 2 grid against the one-process block.
+      'data' axis and as a 'space' 2 grid against the one-process block;
+  (h) the scaling profiler's inventory of the step's collectives on the
+      ('data' 2) grid at 64^2 (profile/scaling.py): the gradients the JAX
+      SAUNet's parameter count in f32, the BatchNorm statistics the closed
+      form of its `batch_stats` channels, no row exchange.
 """
 import json
 import os
@@ -50,6 +54,7 @@ from saunet_tpu_torch.train import (
     radam,
 )
 from test_torch_train_cli import _write_acdc
+from saunet_tpu_torch.profile.scaling import by_class, predict
 from torch_port_util import (  # noqa: F401  (fixture)
     GOLDEN_LEAVES,
     GOLDEN_LR,
@@ -58,6 +63,7 @@ from torch_port_util import (  # noqa: F401  (fixture)
     golden_batch,
     golden_variables_like,
     one_thread,
+    scaling_closed_forms,
     to_jax_variables,
 )
 
@@ -166,6 +172,8 @@ def ranks(work, weights, acdc):
         "cli": ("cli_case", dict(argv=_cli_argv(
             acdc, path, str(work / "ckpt2"), 4))),
         "dryrun": ("dryrun_case", dict(hw=32)),
+        "scaling": ("saunet_tpu_torch.profile.scaling:collectives_case",
+                    dict(hw=64)),
         **{f"train_{name}": ("train_case", dict(
             weights=path, batch=g, lr=GOLDEN_LR, model_kwargs=kwargs))
            for name, kwargs in LAYOUT_STEPS.items()},
@@ -442,3 +450,29 @@ def test_dense_layout_on_two_ranks_matches_one_process(case, ranks):
         for r in res:
             np.testing.assert_allclose(r["buffers"][k].numpy(), v.numpy(),
                                        rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_scaling_inventory_on_the_data_axis(ranks):
+    """(h): one recorded step on the pair: every all-reduce classified; the
+    gradient buckets carry the JAX SAUNet's parameters in the port's f32,
+    the synced BatchNorm its statistics forward and backward, the loss and
+    metrics their sums; no 'space' collective; the ranks' inventories
+    equal; data=4's prediction scales nothing but the ring."""
+    invs = [res["scaling"] for res in ranks[0]]
+    assert invs[0]["collectives"] == invs[1]["collectives"]
+    assert invs[0]["grid"] == {"data": 2, "space": 1}
+    assert invs[0]["samples_per_rank"] == 1
+    classes = by_class(invs[0]["collectives"])
+    param_bytes = next(build_unet().parameters()).element_size()
+    want = scaling_closed_forms(param_bytes)
+    assert classes["gradients"]["bytes"] == want["gradients"]
+    assert classes["bn_stats"]["bytes"] == want["bn_stats"]
+    assert classes["loss_metrics"]["count"] > 0
+    assert classes["row_exchanges"]["count"] == 0
+    assert classes["space_sums"]["count"] == 0
+    assert invs[0]["exchange_rows"] == {"calls": 0, "bytes": 0}
+    assert {r["group"] for r in invs[0]["collectives"]} == {2}
+    pred = predict({"data2": invs[0], "data2_space2": invs[0]}, 100.0)
+    for target in pred["data=4"].values():
+        moved = sum(c["bytes"] for c in target["classes"].values())
+        assert target["comm_ms"] == pytest.approx(1.5 * moved / 1e11 * 1e3)

@@ -150,8 +150,9 @@ def test_infer_step_matches_jax(stream_impl, variables, images,
 
 
 def test_port_never_imports_jax():
-    """Importing the package and every one of its modules leaves jax (and
-    flax's msgpack, and PIL, which the card machine lacks) out of
+    """Importing the package and every one of its modules (the profilers
+    of profile/ and cli/profile.py among them) leaves jax (and flax's
+    msgpack, and PIL, which the card machine lacks) out of
     sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -161,6 +162,9 @@ def test_port_never_imports_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert len(names) > 20, names\n"
+        "assert {'saunet_tpu_torch.cli.profile',"
+        " 'saunet_tpu_torch.profile.infer',"
+        " 'saunet_tpu_torch.profile.scaling'} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'saunet_tpu', 'msgpack',"
         " 'PIL'))\n"

@@ -21,7 +21,11 @@ in turn; the parent compares:
   (d) the 96^2 eval on the 2 x 2 grid, each 'space' pair a 1 x 2 grid on
       its sample (H/32 holds 3 rows over 2 ranks): preds and IoU counts
       exactly the one-process eval's;
-  (e) the 2 x 2 dry run: a finite loss, equal on every rank.
+  (e) the 2 x 2 dry run: a finite loss, equal on every rank;
+  (f) the scaling profiler's inventory of the step's collectives on the 2
+      x 2 grid at 64^2 (profile/scaling.py): gradients and BatchNorm
+      statistics as the JAX SAUNet's closed forms, the row exchanges as
+      `exchange_rows` counts them, and their prediction at 512^2.
 Without ranks: the envelope against the JAX `validate_spatial_partition`,
 the row split, the batch layout, the dry run's grid, `cli.train`'s global
 batch under `--space`, and the per-rank-loss step's refusal of a 'space'
@@ -56,6 +60,7 @@ from saunet_tpu_torch.parallel.parity import (
     iou_counts,
     space_op,
 )
+from saunet_tpu_torch.profile.scaling import TARGETS, by_class, predict
 from saunet_tpu_torch.train import (
     create_train_state,
     make_eval_step,
@@ -69,6 +74,7 @@ from torch_port_util import (  # noqa: F401  (fixture)
     flat_leaves,
     golden_variables_like,
     one_thread,
+    scaling_closed_forms,
     space_batch,
     to_jax_variables,
 )
@@ -179,6 +185,8 @@ def ranks(work, weights, op_inputs):
         "eval": ("eval_case", dict(weights=path, batch=_eval_batch(),
                                    space=2)),
         "dryrun": ("dryrun_case", dict(hw=64)),
+        "scaling": ("saunet_tpu_torch.profile.scaling:collectives_case",
+                    dict(hw=64, space=2)),
     })
     logs = str(work / "ranks")
     os.makedirs(logs)
@@ -403,6 +411,37 @@ def test_space_dry_run_2x2(ranks):
     losses = [res["dryrun"] for res in ranks[0]]
     assert np.isfinite(losses[0]) and all(x == losses[0] for x in losses)
     assert "('data' 2, 'space' 2)" in ranks[1][0]
+
+
+def test_scaling_inventory_on_the_space_grid(ranks):
+    """(f): one recorded step on the 2 x 2 grid (two samples a rank):
+    every rank's all-reduces the same; the gradients and the BatchNorm
+    statistics the JAX SAUNet's closed forms, over all four ranks; the
+    row exchanges and the other 'space' sums over the pair; the exchanges
+    exactly as `exchange_rows` counted them; their prediction at 512^2
+    with 8 samples a rank scaled by width x samples, their count kept."""
+    invs = [res["scaling"] for res in ranks[0]]
+    assert all(inv["collectives"] == invs[0]["collectives"] for inv in invs)
+    inv = invs[0]
+    assert inv["grid"] == {"data": 2, "space": 2}
+    assert inv["samples_per_rank"] == 2
+    classes = by_class(inv["collectives"])
+    param_bytes = next(build_unet().parameters()).element_size()
+    want = scaling_closed_forms(param_bytes)
+    assert classes["gradients"]["bytes"] == want["gradients"]
+    assert classes["bn_stats"]["bytes"] == want["bn_stats"]
+    for c in ("gradients", "bn_stats", "loss_metrics"):
+        assert classes[c]["group"] == 4, c
+    for c in ("row_exchanges", "space_sums"):
+        assert classes[c]["group"] == 2 and classes[c]["count"] > 0, c
+    rows = classes["row_exchanges"]
+    assert inv["exchange_rows"] == {"calls": rows["count"],
+                                    "bytes": rows["bytes"]}
+    width, samples = TARGETS["512^2 b8"]
+    pred = predict({"data2": inv, "data2_space2": inv}, 100.0)
+    at_512 = pred["2x2"]["512^2 b8"]["classes"]["row_exchanges"]
+    assert at_512 == {"count": rows["count"],
+                      "bytes": rows["bytes"] * width / 64 * samples / 2}
 
 
 def test_envelope_matches_jax():

@@ -184,9 +184,10 @@ def test_series_equals_the_jax_tool(acdc_root, split, layout, tmp_path,
 
 
 def test_clis_run_without_jax(seeded_pth, acdc_root, tmp_path):
-    """Both tools as `python -m` with jax, flax, optax and saunet_tpu
-    unimportable, one intra-op thread: the same archive and listing as in
-    this process."""
+    """Both tools, and the profiler's infer mode at 32^2, as `python -m`
+    with jax, flax, optax and saunet_tpu unimportable, one intra-op
+    thread: the same archive and listing as in this process, and the
+    profiler's table and JSON line."""
     encoder, path, _ = seeded_pth
     out, series = str(tmp_path / "w.npz"), str(tmp_path / "series.txt")
     code = (
@@ -202,7 +203,9 @@ def test_clis_run_without_jax(seeded_pth, acdc_root, tmp_path):
     runs = [["saunet_tpu_torch.cli.ingest_pretrained", path, "--out", out,
              "--device", "cpu"],
             ["saunet_tpu_torch.cli.make_series", acdc_root["flat"],
-             "--out", series]]
+             "--out", series],
+            ["saunet_tpu_torch.cli.profile", "--what", "infer", "--device",
+             "cpu", "--hw", "32", "--batch", "2", "--steps", "1"]]
     proc = subprocess.run([sys.executable, "-c", code, json.dumps(runs)],
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, OMP_NUM_THREADS="1"),
@@ -212,6 +215,9 @@ def test_clis_run_without_jax(seeded_pth, acdc_root, tmp_path):
                   for k in encoder.state_dict())
     assert f"(grafted {grafted} encoder tensors)" in proc.stdout
     assert "--pretrained " + out in proc.stdout
+    profile = json.loads(proc.stdout.splitlines()[-1])
+    assert profile["profile"] == "infer" and profile["device"] == "cpu"
+    assert "k3_route" in [r["name"] for r in profile["rows"]]
     ref = str(tmp_path / "ref.npz")
     ingest_pretrained.convert(path, ref)
     with np.load(out) as a, np.load(ref) as b:

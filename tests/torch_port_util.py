@@ -393,3 +393,37 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def jax_saunet_shapes() -> dict:
+    """`jax.eval_shape` of the JAX SAUNet(num_classes=4)'s init at 32^2 (no
+    flax init): its {'params', 'batch_stats'} tree of ShapeDtypeStructs."""
+    import jax
+    import jax.numpy as jnp
+
+    from saunet_tpu.models import SAUNet
+
+    model = SAUNet(num_classes=4)
+    return jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, 32, 32, 3)), train=False),
+        jax.random.PRNGKey(0))
+
+
+def scaling_closed_forms(param_bytes: int) -> dict:
+    """What a global-batch train step must all-reduce a rank, from the JAX
+    SAUNet's variable tree: its gradients (the parameter count times
+    `param_bytes`, the element size of the port's parameters), and the
+    synced BatchNorm's statistics, (sum x, sum x^2, n) in f32 for every
+    channel of every `batch_stats` entry, once in the forward and once in
+    its backward."""
+    import jax
+
+    shapes = jax_saunet_shapes()
+    params = sum(int(np.prod(leaf.shape))
+                 for leaf in jax.tree_util.tree_leaves(shapes["params"]))
+    channels = sum(
+        int(np.prod(leaf.shape)) for path, leaf in
+        jax.tree_util.tree_flatten_with_path(shapes["batch_stats"])[0]
+        if getattr(path[-1], "key", None) == "mean")
+    return {"gradients": params * param_bytes,
+            "bn_stats": 2 * 3 * 4 * channels}
