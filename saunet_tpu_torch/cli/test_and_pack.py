@@ -12,22 +12,40 @@ checkpoint (`state_epoch_<N>.msgpack`); all are read by
 cuda`, the default; a missing card is an error) unless another device is
 named. The port has one stream layout: `--stream_impl` is accepted and runs
 the same math.
+
+Each volume is served by `train.serve_volume`; `timing.json` in
+`--save_test_path` holds the mean host-clock ms a real slice from handing
+the padded volume over to having its labels. To trace a study, pass
+`--trace_dir DIR`: the volume loop then runs under torch.profiler (host
+and card), its trace is written to DIR (TensorBoard's format), and
+`spans.json` beside `timing.json` holds, for each of the program's spans
+(`saunet.serve` > `saunet.copy_in`, `saunet.normalize`, `saunet.step` >
+`saunet.encoder`, `saunet.stream`, `saunet.canny`, `saunet.decoder`,
+`saunet.head`; `saunet.labels_out`), its count, parent, median and p95
+host ms and, on the card, the median device ms of the kernels it
+launched and the ms the card idled while it was the innermost span open,
+with the idle outside every span as "(outside the spans)"
+(utils/profiling.py::span_summary).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
-import time
 
 import numpy as np
-import torch
 
-from ..data import ACDCTestDataset, nifti, normalize_for_eval, resample_to_orig
+from ..data import ACDCTestDataset, nifti, resample_to_orig
 from ..models import build_unet
-from ..train import InferState, make_infer_step, restore_params_only
+from ..train import (
+    InferState,
+    make_infer_step,
+    restore_params_only,
+    serve_volume,
+)
 from ..train.state import resolve_device
-from ..utils import AverageMeter
+from ..utils import AverageMeter, profiling
 from ..utils.png import write_png
 
 
@@ -57,6 +75,9 @@ def parse_args(argv=None):
                    help="slice-batch bucket granularity")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) needs a card")
+    p.add_argument("--trace_dir", default="",
+                   help="profile the volume loop into this directory and "
+                        "write spans.json beside timing.json")
     args = p.parse_args(argv)
     args.result = os.path.join(args.result, args.id)
     return args
@@ -109,39 +130,41 @@ def main(argv=None):
         os.makedirs(args.result, exist_ok=True)
 
     time_meter = AverageMeter()
-    for i in range(len(ds)):
-        vol = ds.load_volume(i)
-        z = vol.image.shape[2]
-        zb = ((z + args.z_bucket - 1) // args.z_bucket) * args.z_bucket
-        imgs = np.zeros((zb,) + vol.image.shape[:2], np.float32)
-        imgs[:z] = np.moveaxis(vol.image, 2, 0)
+    profiling.clear_spans()
+    with (profiling.trace(args.trace_dir) if args.trace_dir
+          else contextlib.nullcontext()) as prof:
+        for i in range(len(ds)):
+            vol = ds.load_volume(i)
+            z = vol.image.shape[2]
+            preds, out, seconds = serve_volume(
+                state, infer, np.moveaxis(vol.image, 2, 0), args.z_bucket)
+            time_meter.update(seconds / z, weight=z)
 
-        tic = time.perf_counter()
-        batch = normalize_for_eval(torch.from_numpy(imgs).to(device))
-        out = infer(state, batch)
-        preds = out[1][:z].cpu().numpy()  # waits for the device
-        time_meter.update((time.perf_counter() - tic) / z, weight=z)
+            pred_volume = np.moveaxis(preds, 0, 2).astype(np.uint8)
+            pv_resized = resample_to_orig(pred_volume, vol)
+            out_path = os.path.join(args.save_test_path,
+                                    vol.name + ".nii.gz")
+            nifti.save(pv_resized.astype(np.uint8), out_path)
+            print(f"Saved {vol.name}! ({z} slices, "
+                  f"{time_meter.average() * 1e3:.2f} ms/slice avg)")
 
-        pred_volume = np.moveaxis(preds, 0, 2).astype(np.uint8)
-        pv_resized = resample_to_orig(pred_volume, vol)
-        out_path = os.path.join(args.save_test_path, vol.name + ".nii.gz")
-        nifti.save(pv_resized.astype(np.uint8), out_path)
-        print(f"Saved {vol.name}! ({z} slices, "
-              f"{time_meter.average() * 1e3:.2f} ms/slice avg)")
-
-        if args.visualize:
-            orig = _orig_volume(ds, i)
-            for zz in range(vol.orig_shape[2]):
-                visualize_result(
-                    orig[:, :, zz], pv_resized[:, :, zz],
-                    os.path.join(args.result, f"{vol.name}{zz}.png"))
-        if args.attention_map:
-            save_attention_maps(out[3], vol.name, z,
-                                os.path.join(args.result, "attention"))
+            if args.visualize:
+                orig = _orig_volume(ds, i)
+                for zz in range(vol.orig_shape[2]):
+                    visualize_result(
+                        orig[:, :, zz], pv_resized[:, :, zz],
+                        os.path.join(args.result, f"{vol.name}{zz}.png"))
+            if args.attention_map:
+                save_attention_maps(out[3], vol.name, z,
+                                    os.path.join(args.result, "attention"))
 
     with open(os.path.join(args.save_test_path, "timing.json"), "w") as f:
         json.dump({"ms_per_slice": float(time_meter.average() * 1e3),
                    "device": str(device)}, f)
+    if args.trace_dir:
+        with open(os.path.join(args.save_test_path, "spans.json"), "w") as f:
+            json.dump(profiling.span_summary(events=prof.events()), f,
+                      indent=1)
     print("Evaluation Done!")
 
 

@@ -14,6 +14,11 @@ rank's `SpaceShard` too: its resizes run on global rows, the center
 block's max pool fetches the rows it reads, and Canny runs on the rank's
 rows and CANNY_HALO rows either side (no farther than the image), the
 design of the JAX package's banded Canny (K2), whose result is exact.
+
+Spans (`utils/profiling.py::annotate`): `saunet.encoder` (the encoder in
+`forward`), `saunet.stream`, `saunet.canny` (K1, or the plain Canny)
+and `saunet.decoder` (edge fusion, the dual-attention decoder, dec1, dec0
+and the head's convolution).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from ..ops.cuda.canny import canny_edges_cuda
 from ..ops.edge import canny_edges, image_to_gray255
 from ..ops.resize import resize_bilinear
 from ..utils.config import NUM_CLASSES, NUM_FILTERS
+from ..utils.profiling import annotate
 from .blocks import (
     Conv2d,
     ConvBNRelu,
@@ -150,10 +156,11 @@ class SAUNet(nn.Module):
             raise ValueError(f"edge_kernel 'pallas' runs the Canny kernel, "
                              f"which has no version for {gray.device}")
         edges = canny_edges if route == "plain" else canny_edges_cuda
-        if self.space is None:
-            return edges(gray, self.canny_low, self.canny_high)
-        return canny_rows(gray, self.space, lambda band: edges(
-            band, self.canny_low, self.canny_high))
+        with annotate("saunet.canny"):
+            if self.space is None:
+                return edges(gray, self.canny_low, self.canny_high)
+            return canny_rows(gray, self.space, lambda band: edges(
+                band, self.canny_low, self.canny_high))
 
     def _height(self, t: torch.Tensor) -> int:
         """The global rows of NCHW `t`'s level."""
@@ -163,21 +170,23 @@ class SAUNet(nn.Module):
     def forward(self, x: torch.Tensor, return_att: bool = False):
         """x: NCHW image. Returns (logits f32, edge_out[, att maps])."""
         x = x.to(self.dtype)
-        _, f2, f3, f4, f5 = self.encoder(x)
+        with annotate("saunet.encoder"):
+            _, f2, f3, f4, f5 = self.encoder(x)
         return self.decode((f2, f3, f4, f5), x, return_att)
 
     def shape_stream(self, taps: Sequence[torch.Tensor], x: torch.Tensor):
         """(f2..f5, x) -> (edge_out f32 in (0, 1), (g1, g2, g3))."""
         conv2, conv3, conv4, conv5 = taps
         hw, sp = (self._height(x), x.shape[3]), self.space
-        ss = resize_bilinear(self.d0(conv2), hw, sp)
-        ss = self.d1(self.res1(ss))
-        ss, g1 = self.gate1(ss, resize_bilinear(self.c3(conv3), hw, sp))
-        ss = self.d2(self.res2(ss))
-        ss, g2 = self.gate2(ss, resize_bilinear(self.c4(conv4), hw, sp))
-        ss = self.d3(self.res3(ss))
-        ss, g3 = self.gate3(ss, resize_bilinear(self.c5(conv5), hw, sp))
-        return torch.sigmoid(self.fuse(ss).float()), (g1, g2, g3)
+        with annotate("saunet.stream"):
+            ss = resize_bilinear(self.d0(conv2), hw, sp)
+            ss = self.d1(self.res1(ss))
+            ss, g1 = self.gate1(ss, resize_bilinear(self.c3(conv3), hw, sp))
+            ss = self.d2(self.res2(ss))
+            ss, g2 = self.gate2(ss, resize_bilinear(self.c4(conv4), hw, sp))
+            ss = self.d3(self.res3(ss))
+            ss, g3 = self.gate3(ss, resize_bilinear(self.c5(conv5), hw, sp))
+            return torch.sigmoid(self.fuse(ss).float()), (g1, g2, g3)
 
     def shape_stream_inputs(self, taps: Sequence[torch.Tensor],
                             x: torch.Tensor) -> torch.Tensor:
@@ -237,13 +246,15 @@ class SAUNet(nn.Module):
                                 None if self.space is None
                                 else self.space.group)
         canny = self._canny(gray).to(dt).permute(0, 3, 1, 2)
-        acts = torch.sigmoid(self.cw(torch.cat([edge_out.to(dt), canny], 1)))
-        edge = self.expand(acts)
+        with annotate("saunet.decoder"):
+            acts = torch.sigmoid(self.cw(torch.cat([edge_out.to(dt), canny],
+                                                   1)))
+            edge = self.expand(acts)
 
-        dec2, atts = self._dualatt_decoder(taps)
-        dec1 = self.dec1(dec2)
-        dec0 = self.dec0(torch.cat([dec1, edge], dim=1))
-        x_out = self.final(dec0).float()
-        if return_att:
-            return x_out, edge_out, self._upsampled_atts(atts, gates)
-        return x_out, edge_out
+            dec2, atts = self._dualatt_decoder(taps)
+            dec1 = self.dec1(dec2)
+            dec0 = self.dec0(torch.cat([dec1, edge], dim=1))
+            x_out = self.final(dec0).float()
+            if return_att:
+                return x_out, edge_out, self._upsampled_atts(atts, gates)
+            return x_out, edge_out

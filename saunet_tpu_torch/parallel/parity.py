@@ -35,7 +35,7 @@ from ..models.densenet import DenseBlock, rematerialised
 from ..models.init import init_random_
 from ..models.norm import sync_batch_norm
 from ..models.saunet import canny_rows
-from ..ops.cuda import KERNELS, canny_edges_cuda
+from ..ops.cuda import canny_edges_cuda, launches, zero_launches
 from ..ops.edge import image_to_gray255
 from ..ops.resize import resize_bilinear
 from ..train import (
@@ -62,15 +62,6 @@ def build_model(weights: Weights, dtype: str = "float32",
     else:
         init_random_(model, torch.Generator().manual_seed(weights))
     return model
-
-
-def launches() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def zero_launches() -> None:
-    for k in KERNELS:
-        k.launches = 0
 
 
 #: the per-rank batch of chip_smoke's torchrun `cli.train` run, at which

@@ -20,7 +20,7 @@ import torch
 
 from ..models import build_unet
 from ..models.init import calibrate_bn_, init_random_
-from ..ops.cuda import KERNELS
+from ..ops.cuda import launches, zero_launches
 from ..train.state import resolve_device
 from ..utils import profiling
 from ..utils.profiling import Segments
@@ -135,10 +135,6 @@ def route_rows(passes: Dict[str, Callable], device: torch.device,
     return rows, routes
 
 
-def launches() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
 def check_launches(fn: Callable, expected: Dict[str, int],
                    device: torch.device, what: str) -> Optional[dict]:
     """On the card: zero the kernel counters, call `fn()` once and require
@@ -147,8 +143,7 @@ def check_launches(fn: Callable, expected: Dict[str, int],
     nothing, so there is nothing to check: None."""
     if device.type != "cuda":
         return None
-    for k in KERNELS:
-        k.launches = 0
+    zero_launches()
     fn()
     torch.cuda.synchronize()
     got = launches()

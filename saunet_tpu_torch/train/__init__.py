@@ -22,6 +22,7 @@ from .state import (
     make_eval_step,
     make_infer_step,
     make_train_step,
+    serve_volume,
 )
 
 __all__ = ["BestIoUPolicy", "DEFAULT_CLASS_WEIGHTS", "InferState",
@@ -32,4 +33,4 @@ __all__ = ["BestIoUPolicy", "DEFAULT_CLASS_WEIGHTS", "InferState",
            "load_jax_variables", "make_eval_step", "make_infer_step",
            "make_train_step", "pixel_acc", "radam", "restore_checkpoint",
            "restore_jax_train_state", "restore_params_only",
-           "save_checkpoint"]
+           "save_checkpoint", "serve_volume"]

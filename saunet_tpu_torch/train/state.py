@@ -4,10 +4,11 @@ saunet_tpu/train/state.py).
 `TrainState` holds the model, the optimizer (with its state) and the step
 count; the steps update it in place and return it, where the JAX steps
 return a new pytree. `InferState` (model + device, plus the dense-block
-operands folded once) serves. Layouts at the steps are the JAX package's:
-NHWC images in, (N, H, W) predictions out, NHWC probabilities, edge and
-attention maps. Every entry point runs on the card unless the caller names
-another device.
+operands folded once) serves; `serve_volume` serves one volume from the
+host and back, as `cli/test_and_pack.py` serves a study. Layouts at the
+steps are the JAX package's: NHWC images in, (N, H, W) predictions out,
+NHWC probabilities, edge and attention maps. Every entry point runs on
+the card unless the caller names another device.
 
 Data parallel (`mesh`, a parallel.DataMesh): `create_train_state` puts the
 model on the rank's device and copies rank 0's weights to every rank;
@@ -21,17 +22,21 @@ the masked loss and the metrics' counts over the ranks.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..data.augment import normalize_for_eval
 from ..models.blocks import partition_space
 from ..models.fused_encoder import encoder_apply_fused, fold_encoder
 from ..models.norm import sync_batch_norm
 from ..parallel.mesh import DataMesh, broadcast_module_
+from ..utils.profiling import annotate
 from .losses import DEFAULT_CLASS_WEIGHTS, dual_loss
 from .metrics import pixel_acc
 
@@ -208,8 +213,9 @@ def _forward_eval(model, folded, images: torch.Tensor, fused: bool,
     x = images.permute(0, 3, 1, 2)
     if not fused:
         return model(x, return_att=return_att)
-    _, *taps = encoder_apply_fused(model.encoder, folded, images,
-                                   model.dtype)
+    with annotate("saunet.encoder"):
+        _, *taps = encoder_apply_fused(model.encoder, folded, images,
+                                       model.dtype)
     return model.decode([t.permute(0, 3, 1, 2) for t in taps], x,
                         return_att=return_att)
 
@@ -276,19 +282,50 @@ def make_infer_step(model, with_probs: bool = False, with_edge: bool = False,
     def step(state: InferState, images: torch.Tensor):
         _check_state(state, model, "make_infer_step")
         m = state.model
-        with torch.inference_mode():
+        with annotate("saunet.step"), torch.inference_mode():
             x = images.to(state.device)
             fused = use_fused_encoder(m, x)
             out = _forward_eval(m, state.folded if fused else None, x, fused,
                                 with_att)
-            seg, edge_full = out[0], out[1]
-            preds = seg.argmax(dim=1)
-            probs = (torch.softmax(seg, dim=1).permute(0, 2, 3, 1)
-                     if with_probs else None)
-            edge = edge_full.permute(0, 2, 3, 1) if with_edge else None
-            if with_att:
-                return probs, preds, edge, [a.permute(0, 2, 3, 1)
-                                            for a in out[2]]
-            return probs, preds, edge
+            with annotate("saunet.head"):
+                seg, edge_full = out[0], out[1]
+                preds = seg.argmax(dim=1)
+                probs = (torch.softmax(seg, dim=1).permute(0, 2, 3, 1)
+                         if with_probs else None)
+                edge = edge_full.permute(0, 2, 3, 1) if with_edge else None
+                if with_att:
+                    return probs, preds, edge, [a.permute(0, 2, 3, 1)
+                                                for a in out[2]]
+                return probs, preds, edge
 
     return step
+
+
+def serve_volume(state: InferState, infer: Callable, slices: np.ndarray,
+                 z_bucket: int):
+    """One volume served as `cli/test_and_pack.py` serves a study: the
+    (Z, H, W) float32 `slices` padded with zero slices to a multiple of
+    `z_bucket` on the host, then copied to the state's device, z-scored
+    (`normalize_for_eval`), run through `infer` (a `make_infer_step`
+    step) and its labels of the Z real slices brought back to the host.
+    Returns (labels (Z, H, W) int64, the step's outputs, seconds from
+    handing the padded array over to having the labels).
+
+    Spans: `saunet.serve` (the timed section) over `saunet.copy_in`,
+    `saunet.normalize`, the step's `saunet.step` and
+    `saunet.labels_out`."""
+    z = slices.shape[0]
+    padded = np.zeros((-(-z // z_bucket) * z_bucket,) + slices.shape[1:],
+                      np.float32)
+    padded[:z] = slices
+    with annotate("saunet.serve"):
+        tic = time.perf_counter()
+        with annotate("saunet.copy_in"):
+            x = torch.from_numpy(padded).to(state.device)
+        with annotate("saunet.normalize"):
+            batch = normalize_for_eval(x)
+        out = infer(state, batch)
+        with annotate("saunet.labels_out"):
+            labels = out[1][:z].cpu().numpy()  # waits for the device
+        seconds = time.perf_counter() - tic
+    return labels, out, seconds

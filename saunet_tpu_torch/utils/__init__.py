@@ -10,9 +10,9 @@ from .config import (
 )
 from .meters import AverageMeter
 from .misc import as_numpy, color_encode
-from .profiling import StepTimer, annotate, trace
+from .profiling import annotate, trace
 
 __all__ = ["AttrDict", "AverageMeter", "BN_EPS", "BN_MOMENTUM",
-           "NUM_CLASSES", "NUM_FILTERS", "StepTimer", "annotate",
+           "NUM_CLASSES", "NUM_FILTERS", "annotate",
            "as_numpy", "assert_and_infer_cfg", "cfg", "color_encode",
            "default_config", "trace"]

@@ -2,11 +2,13 @@
 
   trace(dir):      a torch.profiler window over the host and the card,
                    written to `dir` as a TensorBoard-loadable trace.
-  annotate(name):  a named region: a profiler range, and an NVTX range
-                   when a card is present.
-  StepTimer:       host-clock step timing that synchronises the card at
-                   both ends of a step, excludes the first `skip` steps
-                   (warm-up) and summarises percentiles.
+  annotate(name):  the program's span: host clock at both ends into a
+                   bounded ring, always; a profiler range while a
+                   torch.profiler session is active. `span_records()`
+                   reads the ring, `clear_spans()` empties it,
+                   `span_device_times(events)` finds what the card did
+                   under the spans in a session's events, and
+                   `span_summary()` sums it all up by name.
 
 The card-side measurement helpers that chip_smoke.py and the profilers
 (`saunet_tpu_torch.profile`) share:
@@ -28,15 +30,20 @@ The card-side measurement helpers that chip_smoke.py and the profilers
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
+import itertools
 import os
 import statistics
 import subprocess
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from collections import deque
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -62,56 +69,176 @@ def trace(log_dir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region in the profiler's trace and, on a card, in NVTX."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+#: records the span ring keeps, the oldest dropped first: a 51 s window of
+#: some 2 500 volumes at six spans a volume fills a quarter of it
+SPAN_RING = 65536
 
 
-class StepTimer:
-    """Host-clock step timing, `with timer: step()`; the first `skip`
-    steps are excluded. `sync` (default: whether a card is present)
-    synchronises the card as a step starts and ends, so a step's time is
-    its device work and not its enqueue."""
+class SpanRecord(NamedTuple):
+    """One span: its request (the id its outermost span opened), name, the
+    enclosing span's name (None for the outermost) and the host clock at
+    both ends (`time.perf_counter_ns`)."""
+    request: int
+    name: str
+    parent: Optional[str]
+    t0_ns: int
+    t1_ns: int
 
-    def __init__(self, skip: int = 1, sync: Optional[bool] = None):
-        self.skip = skip
-        self.sync = torch.cuda.is_available() if sync is None else sync
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-        self._count = 0
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e6
+
+
+# The ring is process-wide, as torch.profiler's own state is: the
+# benchmark's readers find the records without a handle through the steps.
+# Each thread nests its own spans.
+_ring: deque = deque(maxlen=SPAN_RING)
+_threads = threading.local()
+_requests = itertools.count(1)
+
+
+#: the span's profiler range: an operation on the host's timeline.
+#: `torch.profiler.record_function` would also put a user annotation on the
+#: device's timeline over the kernels it enqueues, which a reader of the
+#: device's events (portbench/trace.py) takes for device work, filling the
+#: idle gaps the span is there to name.
+_profiler_range = torch._C._profiler._RecordFunctionFast
+
+
+class Span:
+    """`with annotate(name):` see `annotate`."""
+
+    __slots__ = ("name", "_request", "_parent", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        if self.sync:
-            torch.cuda.synchronize()
-        self._t0 = time.perf_counter()
+        stack = _threads.__dict__.setdefault("open", [])
+        if stack:
+            self._request, self._parent = stack[-1]
+        else:
+            self._request, self._parent = next(_requests), None
+        stack.append((self._request, self.name))
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _profiler_range(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        if self.sync:
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.skip:
-            self.times.append(dt)
+        t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _threads.open.pop()
+        _ring.append(SpanRecord(self._request, self.name, self._parent,
+                                self._t0, t1))
         return False
 
-    def summary(self, items_per_step: int = 1) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        t = np.asarray(self.times)
-        return {"steps": len(t), "mean_s": float(t.mean()),
-                "p50_s": float(np.percentile(t, 50)),
-                "p95_s": float(np.percentile(t, 95)),
-                "items_per_sec": float(items_per_step / t.mean())}
+
+def annotate(name: str) -> Span:
+    """The program's span: `with annotate(name): ...`. It always takes the
+    host clock at both ends and appends one record to the span ring (no
+    I/O, no device memory, no synchronize); the outermost open span of a
+    thread opens a new request id, and a nested one takes that id and its
+    parent's name. While a torch.profiler session is active it also opens
+    a profiler range of that name, so the span sits in the trace beside
+    the operations it runs and the kernels they launch
+    (`span_device_times` reads them from there)."""
+    return Span(name)
+
+
+def span_records() -> List[SpanRecord]:
+    """The ring's records, oldest first."""
+    return list(_ring)
+
+
+def clear_spans() -> None:
+    """Empty the span ring."""
+    _ring.clear()
+
+
+def span_device_times(events, names) -> tuple:
+    """What the card did under the spans named in `names`, from a
+    torch.profiler session's events (host and card, `prof.events()`):
+    ({name: [device ms of the kernels and copies launched inside each of
+    its ranges, nested spans' included]}, {name: ms the device idled while
+    that span was the innermost one open on the host}, with the idle
+    outside every span under None). A kernel or copy is placed at the
+    runtime call that launched it (`cudaLaunchKernel`, `cudaMemcpyAsync`:
+    the host event with its correlation id)."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in host if e.name in names]
+    calls = {e.id: e.time_range.start for e in host
+             if e.name.startswith("cu")}
+    launches = [(calls.get(e.id), e.time_range.start, e.time_range.end)
+                for e in events if e.device_type == DeviceType.CUDA]
+    return attribute_to_spans(spans, launches) if launches else ({}, {})
+
+
+def attribute_to_spans(spans, launches) -> tuple:
+    """`span_device_times` on plain intervals: `spans` [(t0, t1, name)],
+    properly nested, and `launches` [(launched at or None, start, end)] on
+    the device, all on one clock."""
+    at = sorted((t, b - a) for t, a, b in launches if t is not None)
+    times = [t for t, _ in at]
+    total = np.concatenate([[0.0], np.cumsum([d for _, d in at])])
+    device: Dict[str, List[float]] = {}
+    for t0, t1, name in spans:
+        lo, hi = bisect.bisect_left(times, t0), bisect.bisect_right(times, t1)
+        device.setdefault(name, []).append(float(total[hi] - total[lo]) / 1e3)
+
+    gaps, end = [], None
+    for _, a, b in sorted(launches, key=lambda k: k[1]):
+        if end is not None and a > end:
+            gaps.append((end, a))
+        end = b if end is None else max(end, b)
+    idle: Dict[Optional[str], float] = {}
+    ordered = sorted(spans, key=lambda s: (s[0], -s[1]))
+    stack, k = [], 0
+    for a, b in gaps:
+        mid = (a + b) / 2
+        while k < len(ordered) and ordered[k][0] <= mid:
+            while stack and stack[-1][1] < ordered[k][0]:
+                stack.pop()
+            stack.append(ordered[k])
+            k += 1
+        while stack and stack[-1][1] < mid:
+            stack.pop()
+        name = stack[-1][2] if stack else None
+        idle[name] = idle.get(name, 0.0) + (b - a) / 1e3
+    return device, idle
+
+
+def span_summary(events=None) -> dict:
+    """{name: {count, parent, host_ms_median, host_ms_p95[,
+    device_ms_median, idle_ms]}} over the ring's records; with the events
+    of the spans' torch.profiler session, where it traced the card
+    (`events`), each span's median device ms and the ms the device idled
+    under it (`span_device_times`), and the idle outside every span as
+    the row "(outside the spans)"."""
+    by_name: Dict[str, List[SpanRecord]] = {}
+    for r in span_records():
+        by_name.setdefault(r.name, []).append(r)
+    device, idle = (span_device_times(events, set(by_name))
+                    if events is not None else ({}, {}))
+    out = {}
+    for name, rs in by_name.items():
+        host = [r.host_ms for r in rs]
+        row = {"count": len(rs), "parent": rs[0].parent,
+               "host_ms_median": statistics.median(host),
+               "host_ms_p95": float(np.percentile(host, 95))}
+        if name in device:
+            row["device_ms_median"] = statistics.median(device[name])
+            row["idle_ms"] = idle.get(name, 0.0)
+        out[name] = row
+    if device:
+        out["(outside the spans)"] = {"idle_ms": idle.get(None, 0.0)}
+    return out
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float):
