@@ -45,6 +45,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      Then `make_infer_step` serves 8 slices at 224^2 from an f32 copy of
      the model: the plain forward, 0 dense-block launches, preds agreeing
      with the model's own forward on >= 0.99 of pixels.
+  5a. the infer step's CUDA graphs at 256^2, bf16 and an f32 copy:
+     buckets 8/12/16/20 eager, captured, then 16 graphed steps in a
+     shuffled order with a new input each call (f32 under cuDNN's
+     deterministic algorithms; two eager f32 steps' spread logged), every
+     call's probs, preds and edge bit for bit equal to the eager step's (a
+     forward hook registered: eager, and the hook fires); outputs
+     unchanged through the next call; replays equal to the steps after
+     warm-up; the kernel counters' gain a call equal for eager, capturing
+     and replayed calls, and one profiled replay a bucket running K1's
+     kernel once and K3's `dense_layer_kernel` as often as an eager step,
+     by name; a new InferState captures anew; the kernels of each graph,
+     and the host and device ms of a replayed and an eager step, logged.
   5b. pretrained-weights ingestion: phase 4's seeded, calibrated encoder
      saved as torchvision's `densenet121-<sha8>.pth` (the `features.`
      prefix, legacy `norm.1` names, a classifier; `<sha8>` its own digest
@@ -868,6 +880,241 @@ def serve_f32(model, device):
     require(bool(torch.isfinite(probs).all()) and int(preds.min()) >= 0
             and int(preds.max()) < 4, "f32 serving: bad probs or labels")
     require(agree >= 0.99, "f32 serving differs from the model's forward")
+
+
+GRAPH_BUCKETS = (8, 12, 16, 20)  # the serving cells' padded volumes
+GRAPH_HW = 256                   # ACDC's crop, as the cells serve it
+GRAPH_STEPS = 16                 # graphed steps after warm-up, a dtype
+#: K1's and K3's kernels, as the profiler names them
+GRAPH_KERNELS = {"canny": "canny_kernel", "dense_layer": "dense_layer_kernel"}
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def _graph_case(model, device, gen):
+    """`phase_infer_graph` for one model (one dtype)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from saunet_tpu_torch.data import normalize_for_eval
+    from saunet_tpu_torch.train import InferState, infer_graph, make_infer_step
+
+    dtype = str(model.dtype).replace("torch.", "")
+    per_step = ({"canny": 1, "dense_block": 4}
+                if model.dtype == torch.bfloat16 else {"canny": 1})
+    state = InferState(model, device)
+    step = make_infer_step(model, with_probs=True, with_edge=True)
+    fired = []
+
+    def batch(n):
+        return normalize_for_eval(synthetic_slices(n, GRAPH_HW, GRAPH_HW,
+                                                   gen, device))
+
+    def eager(x):
+        """The step on `x` with a forward hook on the model: eager."""
+        handle = model.fuse.register_forward_hook(
+            lambda *_: fired.append(1))
+        try:
+            before, n = step.replays, len(fired)
+            out = step(state, x)
+            require(step.replays == before and len(fired) == n + 1,
+                    f"{dtype}: a hooked step replayed or skipped its hook")
+            return out
+        finally:
+            handle.remove()
+
+    def same(a, b, what):
+        for name, u, v in zip(("probs", "preds", "edge"), a, b):
+            require(torch.equal(u, v), f"{dtype} {what}: {name} differ "
+                    f"from the eager step's")
+
+    def counted(x, kind):
+        before = _counts()
+        out = step(state, x)
+        torch.cuda.synchronize()
+        got = _delta(before)
+        require(got == per_step, f"{dtype} {kind} call launches {got}, "
+                f"expected {per_step}")
+        return out
+
+    # warm-up: each bucket eager, then captured
+    for kind, want in (("eager", "eager_calls"), ("capture", "captures")):
+        for n in GRAPH_BUCKETS:
+            x = batch(n)
+            count = getattr(step, want)
+            out = counted(x, kind)
+            require(getattr(step, want) == count + 1,
+                    f"{dtype} bucket {n}: the {kind} call did not run "
+                    f"{kind}")
+            same(out, eager(x), f"bucket {n} {kind} call")
+    require(sum(isinstance(g, infer_graph._Graph)
+                for g in state.graphs.values()) == len(GRAPH_BUCKETS),
+            f"{dtype}: graphs on the state {len(state.graphs)}")
+
+    # graphed steps in a shuffled order, a new input each call, each held
+    # bit for bit against the eager step; the outputs a step returned stay
+    # as they were through the next call
+    order = np.random.RandomState(19).permutation(
+        np.repeat(GRAPH_BUCKETS, GRAPH_STEPS // len(GRAPH_BUCKETS)))
+    replays0, kept = step.replays, None
+    for n in order.tolist():
+        x = batch(n)
+        out = counted(x, "replay")
+        if kept is not None:
+            same(kept[0], kept[1], "the previous step's outputs after the "
+                 "next call:")
+        same(out, eager(x), f"bucket {n} replay")
+        kept = (out, tuple(t.clone() for t in out))
+    replays = step.replays - replays0
+    require(replays == GRAPH_STEPS, f"{dtype}: {replays} replays of "
+            f"{GRAPH_STEPS} steps after warm-up")
+
+    # a new state captures anew: eager, capture, replay
+    fresh = InferState(model, device)
+    calls = (step.eager_calls, step.captures, step.replays)
+    x = batch(GRAPH_BUCKETS[0])
+    outs = [step(fresh, x) for _ in range(3)]
+    require((step.eager_calls - calls[0], step.captures - calls[1],
+             step.replays - calls[2]) == (1, 1, 1),
+            f"{dtype}: a new state did not capture anew")
+    for out in outs:
+        same(out, eager(x), "new state")
+    key = next(iter(fresh.graphs))
+    require(fresh.graphs[key] is not state.graphs[key],
+            f"{dtype}: the new state replays the old state's graph")
+    del fresh, outs
+
+    # kernels of each graph, one replay profiled against one eager step:
+    # K1's and K3's kernels by name, since the wrappers' counters are only
+    # carried forward on a replay (no wrapper runs); the host and device ms
+    # of a step, replayed and eager
+    rows = {}
+    for n in GRAPH_BUCKETS:
+        x = batch(n)
+        found, named = {}, {}
+        for kind, fn in (("replay", lambda: step(state, x)),
+                         ("eager", lambda: eager(x))):
+            fn()
+            torch.cuda.synchronize()
+            replays = step.replays
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            require(step.replays - replays == (kind == "replay"),
+                    f"{dtype} bucket {n}: the profiled {kind} step ran as "
+                    f"another kind")
+            ops = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            found[kind] = (sum("memcpy" not in e.name.lower()
+                               and "memset" not in e.name.lower()
+                               for e in ops), len(ops))
+            named[kind] = {k: sum(name in e.name for e in ops)
+                           for k, name in GRAPH_KERNELS.items()}
+        require(named["eager"]["canny"] == 1
+                and (named["eager"]["dense_layer"] > 0) == ("dense_block"
+                                                           in per_step)
+                and named["replay"] == named["eager"],
+                f"{dtype} bucket {n}: K1's and K3's kernels in a replay "
+                f"{named['replay']}, in an eager step {named['eager']}")
+        host, device_ms = {}, {}
+        for kind, fn in (("replay", lambda: step(state, x)),
+                         ("eager", lambda: eager(x))):
+            hs, ds = [], []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                t0 = time.perf_counter()
+                fn()
+                hs.append((time.perf_counter() - t0) * 1e3)
+                b.record()
+                b.synchronize()
+                ds.append(a.elapsed_time(b))
+            host[kind], device_ms[kind] = (statistics.median(hs),
+                                           statistics.median(ds))
+        rows[n] = {"graph_kernels": found["replay"][0],
+                   "graph_device_ops": found["replay"][1],
+                   "eager_kernels": found["eager"][0],
+                   "eager_device_ops": found["eager"][1],
+                   "graph_k1_k3": named["replay"],
+                   "host_ms": host, "step_ms": device_ms}
+        log(f"{dtype} bucket {n}: kernels a replay {found['replay'][0]} "
+            f"({found['replay'][1]} device ops), an eager step "
+            f"{found['eager'][0]} ({found['eager'][1]}); K1, K3 kernels a "
+            f"replay {named['replay']}; host ms replay "
+            f"{host['replay']:.4f} eager {host['eager']:.4f}; step ms "
+            f"replay {device_ms['replay']:.4f} eager "
+            f"{device_ms['eager']:.4f}")
+    modules = list(model.modules())
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        infer_graph.graphable(x, modules)
+    check_ms = (time.perf_counter() - t0) * 1e3 / 1000
+    log(f"{dtype}: the hook check over {len(modules)} modules "
+        f"{check_ms:.4f} ms a call; counters eager {step.eager_calls}, "
+        f"captures {step.captures}, replays {step.replays}")
+    return {"buckets": rows, "hook_check_ms": check_ms,
+            "eager_calls": step.eager_calls, "captures": step.captures,
+            "replays": step.replays}
+
+
+def phase_infer_graph(model, device):
+    """The infer step's CUDA graphs (train/infer_graph.py) at 256^2, for
+    the bf16 model and an f32 copy: buckets 8/12/16/20 eager, then
+    captured, then GRAPH_STEPS graphed steps in a shuffled order with a new
+    input each call (f32 with cuDNN's deterministic algorithms, since two
+    eager f32 steps need not repeat: their spread is logged). Every call's
+    probs (the logits' softmax), preds and edge equal bit for bit to the
+    eager step's on the same input (the step
+    with a forward hook registered, which must run eager and fire the
+    hook); each step's outputs unchanged through the next call; replays
+    equal to the steps after warm-up; the kernel counters' gain a call the
+    same for an eager, a capturing and a replayed call (bf16 1 Canny and 4
+    dense blocks, f32 1 Canny; on a replay the counters are carried
+    forward from the capture, so one replay a bucket is profiled and must
+    run `canny_kernel` once and `dense_layer_kernel` as often as the eager
+    step, by kernel name); a new InferState captures anew. Logged: the
+    kernels of each graph (one replay profiled) beside an eager step's,
+    the host and device ms of a replayed and an eager step, and the hook
+    check's ms."""
+    import copy
+
+    import torch
+
+    from saunet_tpu_torch.data import normalize_for_eval
+    from saunet_tpu_torch.train import InferState, make_infer_step
+
+    gen = torch.Generator().manual_seed(19)
+    out = {"bfloat16": _graph_case(model, device, gen)}
+    model32 = copy.deepcopy(model)
+    model32.dtype = torch.float32
+    # two eager f32 steps on one input differ at the last bit where cuDNN
+    # picks an algorithm that sums in another order from call to call; with
+    # deterministic algorithms they repeat, and the graph is held to them
+    state = InferState(model32, device)
+    step = make_infer_step(model32, with_probs=True)
+    x = normalize_for_eval(synthetic_slices(GRAPH_BUCKETS[0], GRAPH_HW,
+                                            GRAPH_HW, gen, device))
+    handle = model32.fuse.register_forward_hook(lambda *_: None)
+    a, b = step(state, x)[0], step(state, x)[0]
+    handle.remove()
+    spread = float((a - b).abs().max())
+    log(f"float32: two eager steps on one input, max|d probs| {spread:.6g}")
+    del state, step, a, b
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["float32"] = _graph_case(model32, device, gen)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    out["float32"]["eager_spread_max_abs_probs"] = spread
+    del model32
+    return out
 
 
 def phase_ingest(model, state, images, device):
@@ -3076,6 +3323,7 @@ def main() -> int:
     infer_launches, rates = phase_main_path(model, state, images)
     k4_launches, k4 = phase_shape_stream(model, state, images)
     ms_per_slice = phase_serving(model, device)
+    graphs = phase_infer_graph(model, device)
     ingest_launches, ingest = phase_ingest(model, state, images, device)
     del model, state, images
     torch.cuda.empty_cache()
@@ -3192,7 +3440,8 @@ def main() -> int:
         k: k4[k] for k in ("route_ms", "route_slices_per_s", "step_ms",
                            "step_slices_per_s", "route_argmax_agreement",
                            "inputs_ms")},
-        "serving_ms_per_slice": ms_per_slice, "ingest": ingest,
+        "serving_ms_per_slice": ms_per_slice, "infer_graph": graphs,
+        "ingest": ingest,
         "train": train,
         "transforms": {k: transforms[k] for k in ("shapes", "mismatches")},
         "trajectory": trajectory, "trajectory_256": trajectory_256,

@@ -25,7 +25,10 @@ and card), its trace is written to DIR (TensorBoard's format), and
 host ms and, on the card, the median device ms of the kernels it
 launched and the ms the card idled while it was the innermost span open,
 with the idle outside every span as "(outside the spans)"
-(utils/profiling.py::span_summary).
+(utils/profiling.py::span_summary), and under "(infer step)" how the infer
+step ran: its `eager_calls`, `captures` and `replays` (the step replays a
+CUDA graph on the card; under a replay the card's kernels fall under
+`saunet.step`, not under the spans inside it).
 """
 from __future__ import annotations
 
@@ -162,9 +165,11 @@ def main(argv=None):
         json.dump({"ms_per_slice": float(time_meter.average() * 1e3),
                    "device": str(device)}, f)
     if args.trace_dir:
+        spans = profiling.span_summary(events=prof.events())
+        spans["(infer step)"] = {k: getattr(infer, k) for k in
+                                 ("eager_calls", "captures", "replays")}
         with open(os.path.join(args.save_test_path, "spans.json"), "w") as f:
-            json.dump(profiling.span_summary(events=prof.events()), f,
-                      indent=1)
+            json.dump(spans, f, indent=1)
     print("Evaluation Done!")
 
 

@@ -37,6 +37,7 @@ from ..models.fused_encoder import encoder_apply_fused, fold_encoder
 from ..models.norm import sync_batch_norm
 from ..parallel.mesh import DataMesh, broadcast_module_
 from ..utils.profiling import annotate
+from . import infer_graph
 from .losses import DEFAULT_CLASS_WEIGHTS, dual_loss
 from .metrics import pixel_acc
 
@@ -53,13 +54,18 @@ def resolve_device(device: Optional[torch.device | str]) -> torch.device:
 
 class InferState:
     """A model in eval mode on `device` (default: the card), with its
-    dense-block kernel operands folded once (re-create the state after
-    changing weights)."""
+    dense-block kernel operands folded once, and the infer step's CUDA
+    graphs of it (`train/infer_graph.py`: `graphs` by key, their memory
+    pool and capture stream). The folded operands and the graphs hold the
+    model as it was: re-create the state after changing weights or the
+    model's settings."""
 
     def __init__(self, model, device: Optional[torch.device | str] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.folded = fold_encoder(self.model.encoder, model.dtype)
+        self.graphs: dict = {}
+        self.graph_pool = self.capture_stream = None
 
 
 class TrainState:
@@ -277,27 +283,46 @@ def make_infer_step(model, with_probs: bool = False, with_edge: bool = False,
     edge (N, H, W, 1) are None unless `with_probs` / `with_edge` is set.
     The encoder runs on the dense-block kernel for a bf16 model on the card
     (`use_fused_encoder`); any other model or device takes the plain
-    forward."""
+    forward.
+
+    On the card the step replays a CUDA graph of itself, captured for each
+    padded batch shape on the state (`train/infer_graph.py`: eager at a
+    shape's first call, captured at its second, replayed from its third),
+    and returns fresh tensors every call. It runs eager on the CPU, while
+    any module of the model is in training mode, and while any module has
+    a forward hook or pre-hook, or a global one is set: a replay runs no
+    Python and would skip them. The step counts its calls in `.eager_calls`,
+    `.captures` and `.replays`."""
+    modules = list(model.modules())
+    outputs = (with_probs, with_edge, with_att)
+
+    def forward(state: InferState, x: torch.Tensor):
+        m = state.model
+        fused = use_fused_encoder(m, x)
+        out = _forward_eval(m, state.folded if fused else None, x, fused,
+                            with_att)
+        with annotate("saunet.head"):
+            seg, edge_full = out[0], out[1]
+            preds = seg.argmax(dim=1)
+            probs = (torch.softmax(seg, dim=1).permute(0, 2, 3, 1)
+                     if with_probs else None)
+            edge = edge_full.permute(0, 2, 3, 1) if with_edge else None
+            if with_att:
+                return probs, preds, edge, [a.permute(0, 2, 3, 1)
+                                            for a in out[2]]
+            return probs, preds, edge
 
     def step(state: InferState, images: torch.Tensor):
         _check_state(state, model, "make_infer_step")
-        m = state.model
         with annotate("saunet.step"), torch.inference_mode():
             x = images.to(state.device)
-            fused = use_fused_encoder(m, x)
-            out = _forward_eval(m, state.folded if fused else None, x, fused,
-                                with_att)
-            with annotate("saunet.head"):
-                seg, edge_full = out[0], out[1]
-                preds = seg.argmax(dim=1)
-                probs = (torch.softmax(seg, dim=1).permute(0, 2, 3, 1)
-                         if with_probs else None)
-                edge = edge_full.permute(0, 2, 3, 1) if with_edge else None
-                if with_att:
-                    return probs, preds, edge, [a.permute(0, 2, 3, 1)
-                                                for a in out[2]]
-                return probs, preds, edge
+            if not infer_graph.graphable(x, modules):
+                step.eager_calls += 1
+                return forward(state, x)
+            return infer_graph.call(step, state,
+                                    infer_graph.key(x, outputs), forward, x)
 
+    step.eager_calls = step.captures = step.replays = 0
     return step
 
 

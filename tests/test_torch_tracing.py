@@ -186,6 +186,9 @@ def test_test_and_pack_trace_dir_writes_spans_and_a_trace(model, tmp_path):
     assert spans["saunet.step"]["parent"] == "saunet.serve"
     assert spans["saunet.canny"]["parent"] == "saunet.step"
     assert "(outside the spans)" not in spans
+    # the CPU runs the infer step eager, one call a volume
+    assert spans["(infer step)"] == {"eager_calls": 2, "captures": 0,
+                                     "replays": 0}
     assert spans["saunet.serve"]["host_ms_p95"] >= \
         spans["saunet.step"]["host_ms_median"]
     written = os.listdir(traces)
